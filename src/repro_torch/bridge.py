@@ -1,0 +1,125 @@
+"""Reference parameter pytrees ↔ the port's modules.
+
+The one place weights cross between the packages. A reference pytree is a
+nested dict of numpy arrays (or tensors) keyed exactly as
+``repro.models.extractors`` keys it:
+
+* MLP extractor and classifier: ``w{i}`` ``(in, out)``, ``b{i}`` ``(out,)``;
+* CNN: ``stem`` and ``s{s}b{b}/{conv1, conv2, proj}`` as HWIO kernels,
+  ``s{s}b{b}/gn{1,2}_{scale,bias}``, ``out_gn_{scale,bias}``,
+  ``head_w`` ``(C, rep)``, ``head_b``.
+
+The port stores ``nn.Linear`` weights as ``(out, in)`` and conv kernels as
+OIHW, so dense weights are transposed and conv kernels permuted
+``(3, 2, 0, 1)`` on the way in (and back on the way out).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models.extractors import CNNExtractor, Dense
+
+Tree = Dict[str, Any]
+
+
+def _tensor(x: Any) -> torch.Tensor:
+    return x if torch.is_tensor(x) else torch.from_numpy(np.array(x))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _set(param: torch.Tensor, value: Any, name: str) -> None:
+    value = _tensor(value)
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"{name}: shape {tuple(value.shape)} does not fit {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(value.to(param.dtype))
+
+
+def _hwio_to_oihw(w: Any) -> torch.Tensor:
+    return _tensor(w).permute(3, 2, 0, 1)
+
+
+def _blocks(module: CNNExtractor):
+    n = module.blocks_per_stage
+    for i, block in enumerate(module.blocks):
+        yield f"s{i // n}b{i % n}", block
+
+
+def load_jax_params(module: nn.Module, params: Tree) -> nn.Module:
+    """Copy a reference parameter pytree into ``module`` (in place).
+
+    Raises ``ValueError`` on a missing key or a shape that does not fit."""
+    try:
+        if isinstance(module, Dense):
+            expected = {f"{p}{i}" for i in range(len(module.layers)) for p in "wb"}
+            if set(params) != expected:
+                raise ValueError(f"keys {sorted(params)} are not {sorted(expected)}")
+            for i, layer in enumerate(module.layers):
+                _set(layer.weight, _tensor(params[f"w{i}"]).T, f"w{i}")
+                _set(layer.bias, params[f"b{i}"], f"b{i}")
+            return module
+        if isinstance(module, CNNExtractor):
+            _set(module.stem.weight, _hwio_to_oihw(params["stem"]), "stem")
+            for pfx, block in _blocks(module):
+                p = params[pfx]
+                _set(block.conv1.weight, _hwio_to_oihw(p["conv1"]), f"{pfx}/conv1")
+                _set(block.conv2.weight, _hwio_to_oihw(p["conv2"]), f"{pfx}/conv2")
+                if (block.proj is None) != ("proj" not in p):
+                    raise ValueError(f"{pfx}: projection shortcut mismatch")
+                if block.proj is not None:
+                    _set(block.proj.weight, _hwio_to_oihw(p["proj"]), f"{pfx}/proj")
+                for g, gn in (("gn1", block.gn1), ("gn2", block.gn2)):
+                    _set(gn.weight, p[f"{g}_scale"], f"{pfx}/{g}_scale")
+                    _set(gn.bias, p[f"{g}_bias"], f"{pfx}/{g}_bias")
+            _set(module.out_gn.weight, params["out_gn_scale"], "out_gn_scale")
+            _set(module.out_gn.bias, params["out_gn_bias"], "out_gn_bias")
+            _set(module.head.weight, _tensor(params["head_w"]).T, "head_w")
+            _set(module.head.bias, params["head_b"], "head_b")
+            return module
+    except KeyError as e:
+        raise ValueError(f"reference params lack key {e}") from None
+    raise TypeError(f"no reference layout for {type(module).__name__}")
+
+
+def to_jax_params(module: nn.Module) -> Tree:
+    """The module's parameters as a reference-keyed pytree of float32 numpy
+    arrays (the inverse of :func:`load_jax_params`). Its keys and shapes are
+    also the template a checkpoint is read into."""
+    if isinstance(module, Dense):
+        tree: Tree = {}
+        for i, layer in enumerate(module.layers):
+            tree[f"w{i}"] = _numpy(layer.weight.T)
+            tree[f"b{i}"] = _numpy(layer.bias)
+        return tree
+    if isinstance(module, CNNExtractor):
+
+        def hwio(conv: nn.Conv2d) -> np.ndarray:
+            return _numpy(conv.weight.permute(2, 3, 1, 0))
+
+        tree = {"stem": hwio(module.stem)}
+        for pfx, block in _blocks(module):
+            p = {
+                "conv1": hwio(block.conv1),
+                "conv2": hwio(block.conv2),
+                "gn1_scale": _numpy(block.gn1.weight),
+                "gn1_bias": _numpy(block.gn1.bias),
+                "gn2_scale": _numpy(block.gn2.weight),
+                "gn2_bias": _numpy(block.gn2.bias),
+            }
+            if block.proj is not None:
+                p["proj"] = hwio(block.proj)
+            tree[pfx] = p
+        tree["out_gn_scale"] = _numpy(module.out_gn.weight)
+        tree["out_gn_bias"] = _numpy(module.out_gn.bias)
+        tree["head_w"] = _numpy(module.head.weight.T)
+        tree["head_b"] = _numpy(module.head.bias)
+        return tree
+    raise TypeError(f"no reference layout for {type(module).__name__}")

@@ -1,0 +1,18 @@
+from repro_torch.checkpoint.artifact import (
+    ARTIFACT_VERSION,
+    ExtractorSpec,
+    TrainedVFLModel,
+    init_artifact,
+    load_artifact,
+)
+from repro_torch.checkpoint.ckpt import latest_step, load_checkpoint
+
+__all__ = [
+    "ARTIFACT_VERSION",
+    "ExtractorSpec",
+    "TrainedVFLModel",
+    "init_artifact",
+    "latest_step",
+    "load_artifact",
+    "load_checkpoint",
+]

@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for the port's hot spots.
+
+Each kernel directory mirrors ``repro.kernels.<name>``: ``csrc/*.cu`` (the
+kernel, with a plain C entry point), ``ops.py`` (the checked wrapper that
+launches it on a CUDA tensor and takes the plain version on a CPU tensor)
+and ``ref.py`` (the plain PyTorch version). :mod:`._build` compiles the
+sources with ``nvcc`` at first use; importing a kernel module builds
+nothing.
+
+* ``sdpa_estimator`` — Eq. 10 flash-style SDPA estimation.
+"""
