@@ -45,6 +45,7 @@ N_O = 2048
 # as implicit GEMMs, FFTs or complex GEMMs ("cf32"), so they precede "gemm".
 KINDS = (
     ("sdpa_estimator", "sdpa_estimator (CUDA kernel)"),
+    ("kmeans_assign", "kmeans (CUDA kernel)"),
     ("conv", "convolution (cuDNN)"),
     ("fprop", "convolution (cuDNN)"),
     ("fft", "convolution (cuDNN)"),

@@ -3,27 +3,35 @@
     python3 chip_smoke.py
 
 Drives ``repro_torch`` (never JAX, never the reference package) through its
-serving path at the image extractor's full width: K = 2 parties holding the
-(32, 16, 3) halves of a CIFAR-10 image and K = 4 holding (16, 16, 3)
-patches, the WideResNet-style CNN at its defaults (widths 32/64/128, two
-blocks per stage, 128-wide representations), a linear 10-class joint head,
-seeded random weights and N_o = 2048 overlap rows. Phases, each of which
-fails the run (nonzero exit, no result line) if it goes wrong:
+two paths, training and serving. Phases, each of which fails the run
+(nonzero exit, no result line) if it goes wrong:
 
 1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
 2. kernels: build every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
    (one nvcc per kernel, in parallel), then hold each kernel against its
-   plain PyTorch version on the card at the serving path's shapes, timing
-   the kernel, the plain version, and one PyTorch library call computing
-   the same function;
-3. serving (K = 2): ragged requests through ``serve_traffic`` at capacity
-   1024, held against the unbatched ``predict_logits``;
-4. partial-party queries (K = 2: one B = 1 launch each; K = 4: one B = 3
-   launch each), held against the plain route on the same inputs.
+   plain PyTorch version on the card at its path's shapes, timing the
+   kernel, the plain version, and one PyTorch library call computing the
+   same function;
+3. one-shot A (the training path): Alg. 1 on the port's own
+   ``hard/overlap-32`` data (two parties, MLP 20→64→16, N_o = 32, 80 client
+   and 40 server epochs): 3 comm times, 12288 bytes, k-means purity > 0.5
+   on both parties, AUC > 0.6;
+4. one-shot B (the training path at full width): Alg. 1 on 60000 synthetic
+   CIFAR-like images split into K = 2 (32, 16, 3) halves, the
+   WideResNet-style CNN at its defaults (widths 32/64/128, two blocks per
+   stage, 128-wide representations), a linear 256 → 10 head, N_o = 2048:
+   3 comm times, 6291456 bytes, purity > 0.5, accuracy > 0.2; each step
+   timed;
+5. serving (K = 2): the model B trained, ragged requests through
+   ``serve_traffic`` at capacity 1024, held against the unbatched
+   ``predict_logits``;
+6. partial-party queries (K = 2 over B's 2048 refreshed overlap reps: one
+   B = 1 launch each; K = 4 (16, 16, 3) patches with seeded random weights:
+   one B = 3 launch each), held against the plain route on the same inputs.
 
-Kernel launch counters are set to 0 just before phases 3-4 (the main path)
-and read just after. Output ends with a ``{"kernels": [...]}`` line, the
-card's ``nvidia-smi`` name and power limit, and, last, the result line
+Kernel launch counters are set to 0 just before each path (phases 3-4, then
+5-6) and read just after. Output ends with a ``{"kernels": [...]}`` line,
+the card's ``nvidia-smi`` name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -41,8 +49,12 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch import scenarios  # noqa: E402
 from repro_torch.checkpoint import ExtractorSpec, init_artifact  # noqa: E402
+from repro_torch.core.protocol import KMEANS_RESTARTS, ProtocolConfig, run_one_shot  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.kmeans import ops as kops  # noqa: E402
+from repro_torch.kernels.kmeans import ref as kref  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
 from repro_torch.launch.vfl_serve import ServingEngine, serve_traffic  # noqa: E402
 
@@ -68,6 +80,38 @@ SHAPES = [
     (1, 1024, 2000, 128, 128),
     (2, 333, 517, 64, 128),
 ]
+# k-means assignment vs plain version: equal on every row whose best two
+# squared distances differ by more than NEAR_TIE (rows are unit vectors, so
+# distances lie in [0, 4]; the two sum d-long dots in different orders);
+# near-tie rows may differ, at most MAX_EXEMPT of a launch's rows. The
+# minimum distance itself agrees to a few f32 ulps of 4.
+NEAR_TIE = 1e-5
+MAX_EXEMPT = 1e-3
+KMEANS_MIN_TOL = 1e-5
+# (B, N, d, C): one-shot B's Lloyd and inertia launches (K·R = 2·4 entries)
+# and final launch (K = 2), the same for one-shot A, an odd shape, and
+# centres far beyond shared memory.
+KMEANS_SHAPES = [
+    (8, 2048, 128, 10),
+    (2, 2048, 128, 10),
+    (8, 32, 16, 2),
+    (2, 32, 16, 2),
+    (3, 1000, 77, 37),
+    (1, 4096, 1024, 1000),
+]
+# One-shot B: the paper's §5.1 CIFAR-10 layout at the extractor's full
+# width, on the repository's synthetic CIFAR-like generator.
+IMAGE_B = scenarios.ScenarioSpec(
+    name="image/halves-cifar-full",
+    modality="image",
+    generator="image_classification",
+    overlap=2048,
+    num_samples=60000,
+    rep_dim=128,
+    widths=(32, 64, 128),
+    blocks_per_stage=2,
+)
+B_CLIENT_EPOCHS = 20
 
 
 def fail(msg: str) -> None:
@@ -129,7 +173,7 @@ def phase_device() -> str:
     return line
 
 
-def phase_kernels(gen) -> dict:
+def phase_sdpa(gen) -> dict:
     """Kernel vs plain version (and library call) at the path's shapes."""
     rows = []
     for b, nu, no, d, db in SHAPES:
@@ -159,6 +203,112 @@ def phase_kernels(gen) -> dict:
     return rows[0]  # the K = 2 partial-query launch shape
 
 
+def kmeans_bound_ms(b: int, n: int, d: int, c: int) -> tuple:
+    """Least time on an H100: x, the centres and the labels each moved
+    once, against the distance products' FLOPs at the f32 peak."""
+    t_bytes = 4 * b * (n * d + c * d + n) / H100_BYTES_PER_S
+    t_ops = 2 * b * n * c * d / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _unit_rows(gen, *shape):
+    x = torch.randn(*shape, generator=gen, device="cuda")
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def phase_kmeans(gen) -> dict:
+    """The k-means kernel vs its plain version (and ``torch.cdist`` +
+    argmin) at the training path's shapes and two stress shapes."""
+    rows = []
+    for b, n, d, c in KMEANS_SHAPES:
+        x, m = _unit_rows(gen, b, n, d), _unit_rows(gen, b, c, d)
+        got, mind = kops.kmeans_assign_min_batched(x, m)
+        want, want_min = kref.kmeans_assign_min_batched(x, m)
+        torch.cuda.synchronize()
+        top = kref.sq_dists(x, m).topk(min(2, c), dim=-1, largest=False).values
+        gap = top[..., 1] - top[..., 0] if c > 1 else torch.full_like(top[..., 0], 4.0)
+        exempt = gap <= NEAR_TIE
+        wrong = int(((got != want) & ~exempt).sum())
+        err = (mind - want_min).abs().max().item()
+        agree = float((got == want).float().mean())
+        check(wrong == 0, f"kmeans kernel disagrees on {wrong} rows at {(b, n, d, c)}")
+        check(1.0 - agree <= MAX_EXEMPT, f"{1 - agree:.2%} near-tie rows differ at {(b, n, d, c)}")
+        check(err <= KMEANS_MIN_TOL, f"kmeans min distance max|err| {err} > {KMEANS_MIN_TOL}")
+        row = {
+            "shape": [b, n, d, c],
+            "max_abs_err": err,
+            "agreement": agree,
+            "ms": time_ms(lambda: kops.kmeans_assign_batched(x, m)),
+            "plain_ms": time_ms(lambda: kref.kmeans_assign_batched(x, m)),
+            "library_ms": time_ms(lambda: torch.cdist(x, m).argmin(-1)),
+        }
+        row["bound_ms"], row["bound_by"] = kmeans_bound_ms(b, n, d, c)
+        rows.append(row)
+        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ("ms", "plain_ms", "library_ms"))
+        print(
+            f"[kernel] kmeans B={b} N={n} d={d} C={c}: agreement {agree:.6f} "
+            f"({int(exempt.sum())} near-tie rows exempt) | min-dist max|err| {err:.3e} | "
+            f"{times} | bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+        )
+    return rows[0]  # the Lloyd launch: 25 of every run's 27
+
+
+def phase_one_shot_a(line: str) -> int:
+    """Alg. 1 on hard/overlap-32 (the port's own data); returns the k-means
+    launches it should have made."""
+    spec = scenarios.HARD_OVERLAP_32
+    bundle = scenarios.build(spec, seed=SEED, device="cuda")
+    cfg = ProtocolConfig(
+        client_epochs=spec.budget("client_epochs", 20),
+        server_epochs=spec.budget("server_epochs", 50),
+    )
+    res = run_one_shot(SEED, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
+    purity = res.diagnostics["kmeans_purity"]
+    check(res.ledger.comm_times() == 3, f"A: {res.ledger.comm_times()} comm times, not 3")
+    check(res.ledger.total_bytes() == 12288, f"A: {res.ledger.total_bytes()} bytes, not 12288")
+    check(all(p > 0.5 for p in purity), f"A: k-means purity {purity}")
+    check(res.metric_name == "auc" and res.metric > 0.6, f"A: {res.metric_name} {res.metric}")
+    steps = " ".join(f"{k} {v:.1f}" for k, v in res.diagnostics["step_ms"].items())
+    print(
+        f"[one-shot A] {spec.name}: AUC {res.metric:.4f} | {res.ledger.total_bytes()} bytes in "
+        f"{res.ledger.comm_times()} comm times | purity {purity} | step ms: {steps} | {line}"
+    )
+    return cfg.kmeans_iters + 2
+
+
+def phase_one_shot_b(line: str):
+    """Alg. 1 at full CNN width; returns (the trained artifact, the k-means
+    launches it should have made)."""
+    t0 = time.perf_counter()
+    bundle = scenarios.build(IMAGE_B, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    split = bundle.split
+    cfg = ProtocolConfig(client_epochs=B_CLIENT_EPOCHS)
+    res = run_one_shot(SEED, split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
+    purity = res.diagnostics["kmeans_purity"]
+    want_bytes = 3 * 2 * IMAGE_B.overlap * IMAGE_B.rep_dim * 4
+    check(res.ledger.comm_times() == 3, f"B: {res.ledger.comm_times()} comm times, not 3")
+    check(res.ledger.total_bytes() == want_bytes, f"B: {res.ledger.total_bytes()} bytes")
+    check(all(p > 0.5 for p in purity), f"B: k-means purity {purity}")
+    check(res.metric_name == "accuracy" and res.metric > 0.2, f"B: {res.metric_name} {res.metric}")
+    ms = res.diagnostics["step_ms"]
+    ssl_steps = sum(res.diagnostics["ssl_steps"])
+    steps = " ".join(f"{k} {v:.1f}" for k, v in ms.items())
+    print(
+        f"[one-shot B] {IMAGE_B.name}: {IMAGE_B.num_samples} rows, halves "
+        f"{tuple(split.aligned[0].shape[1:])}, pools {[u.shape[0] for u in split.unaligned]}, "
+        f"test {split.test_labels.shape[0]}, CNN 32/64/128 x2 rep 128, client_epochs "
+        f"{cfg.client_epochs}, server_epochs {cfg.server_epochs}: accuracy {res.metric:.4f} | "
+        f"{res.ledger.total_bytes()} bytes in {res.ledger.comm_times()} comm times | "
+        f"purity {purity} | "
+        f"data {setup_ms:.1f} ms | step ms: {steps} | SSL {ssl_steps} steps, "
+        f"{ms['4_local_ssl'] / ssl_steps:.3f} ms/step | total {sum(ms.values()):.1f} ms | {line}"
+    )
+    print(json.dumps({"one_shot_b_step_ms": ms, "ssl_steps": ssl_steps}))
+    return res.to_artifact(IMAGE_B.name, split), cfg.kmeans_iters + 2
+
+
 def make_art(spec, shapes, gen):
     """A seeded artifact whose overlap reps are its extractors' outputs on
     N_O seeded aligned rows."""
@@ -185,7 +335,7 @@ def phase_serving(art, gen, line: str) -> None:
     check(worst <= LOGIT_RTOL, f"batched vs unbatched logits differ by {worst} (relative)")
     s = rec.summary()
     print(
-        "[serve] K=2 halves (32,16,3) CNN 32/64/128 x2 rep 128 -> 10 classes, "
+        f"[serve] K=2 halves (32,16,3) CNN 32/64/128 x2 rep 128 -> 10 classes ({art.scenario}), "
         f"capacity {CAPACITY}: {len(reqs)} requests, {s['rows']} rows in {s['batches']} "
         f"batches: p50 {s['p50_ms']:.3f} ms p99 {s['p99_ms']:.3f} ms "
         f"{s['rows_per_s']:.0f} rows/s | batched vs unbatched max rel diff {worst:.2e} | {line}"
@@ -238,37 +388,66 @@ def main() -> int:
                 print(f"[build] {name}: {log_line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernel_row = phase_kernels(gen)
+    sdpa_row = phase_sdpa(gen)
+    kmeans_row = phase_kmeans(gen)
+
+    # ---- the training path: counters from 0, read right after
+    torch.cuda.synchronize()
+    ops.LAUNCHES = kops.LAUNCHES = 0
+    expected_km = phase_one_shot_a(line)
+    art_b, runs_b = phase_one_shot_b(line)
+    expected_km += runs_b
+    torch.cuda.synchronize()
+    km_launches, sdpa_in_training = kops.LAUNCHES, ops.LAUNCHES
+    check(
+        km_launches == expected_km,
+        f"kmeans launched {km_launches} times, expected {expected_km}",
+    )
+    check(sdpa_in_training == 0, f"sdpa_estimator launched {sdpa_in_training} times in training")
+    print(
+        f"[path] training: kmeans launches {km_launches} (expected {expected_km}: per run "
+        f"{runs_b - 2} Lloyd iterations over K·R = 2·{KMEANS_RESTARTS} + 1 inertia + 1 final)"
+    )
 
     cnn = ExtractorSpec(kind="cnn", rep_dim=128, widths=(32, 64, 128), blocks_per_stage=2)
-    halves = make_art(cnn, [(32, 16, 3)] * 2, gen)
     patches = make_art(cnn, [(16, 16, 3)] * 4, gen)
     torch.cuda.synchronize()
 
-    # ---- the main path: counters from 0, read right after
-    ops.LAUNCHES = 0
-    phase_serving(halves, gen, line)
-    expected = phase_partial(halves, gen, 4, line)
+    # ---- the serving path: counters from 0, read right after
+    ops.LAUNCHES = kops.LAUNCHES = 0
+    phase_serving(art_b, gen, line)
+    expected = phase_partial(art_b, gen, 4, line)
     expected += phase_partial(patches, gen, 3, line)
     torch.cuda.synchronize()
     launches = ops.LAUNCHES
     check(launches == expected, f"sdpa_estimator launched {launches} times, expected {expected}")
-    print(f"[path] sdpa_estimator launches on the main path: {launches} (expected {expected})")
+    check(kops.LAUNCHES == 0, f"kmeans launched {kops.LAUNCHES} times in serving")
+    print(f"[path] serving: sdpa_estimator launches {launches} (expected {expected})")
+
+    def entry(name, source, replaces, count, row):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
+        out["launches"] = count
+        out.update({k: row[k] for k in keys})
+        if "agreement" in row:
+            out["agreement"] = row["agreement"]
+        return out
 
     kernels = [
-        {
-            "name": "sdpa_estimator",
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/sdpa_estimator/csrc/sdpa_estimator.cu",
-            "replaces": "src/repro/kernels/sdpa_estimator/kernel.py:38",
-            "launches": launches,
-            "max_abs_err": kernel_row["max_abs_err"],
-            "ms": kernel_row["ms"],
-            "plain_ms": kernel_row["plain_ms"],
-            "bound_ms": kernel_row["bound_ms"],
-            "bound_by": kernel_row["bound_by"],
-            "library_ms": kernel_row["library_ms"],
-        }
+        entry(
+            "sdpa_estimator",
+            "src/repro_torch/kernels/sdpa_estimator/csrc/sdpa_estimator.cu",
+            "src/repro/kernels/sdpa_estimator/kernel.py:38",
+            launches,
+            sdpa_row,
+        ),
+        entry(
+            "kmeans",
+            "src/repro_torch/kernels/kmeans/csrc/kmeans_assign.cu",
+            "src/repro/kernels/kmeans/kernel.py:32",
+            km_launches,
+            kmeans_row,
+        ),
     ]
     print(json.dumps({"kernels": kernels}))
     print(line)

@@ -2,6 +2,7 @@ from repro_torch.checkpoint.artifact import (
     ARTIFACT_VERSION,
     ExtractorSpec,
     TrainedVFLModel,
+    from_state,
     init_artifact,
     load_artifact,
 )
@@ -11,6 +12,7 @@ __all__ = [
     "ARTIFACT_VERSION",
     "ExtractorSpec",
     "TrainedVFLModel",
+    "from_state",
     "init_artifact",
     "latest_step",
     "load_artifact",

@@ -12,8 +12,9 @@ plus JSON metadata (artifact version, scenario, classes, per-party feature
 shapes and :class:`ExtractorSpec` records, protocol provenance).
 :func:`load_artifact` rebuilds every module from the specs alone, reads the
 pytree in the reference's leaf order and carries it across with
-:func:`repro_torch.bridge.load_jax_params`. Saving waits for the training
-slice of the port; :func:`init_artifact` builds a seeded artifact directly.
+:func:`repro_torch.bridge.load_jax_params`. :func:`from_state` builds the
+artifact of a model the port trained (``VFLResult.to_artifact``), and
+:func:`init_artifact` a seeded untrained one. Saving is not ported yet.
 """
 
 from __future__ import annotations
@@ -158,6 +159,55 @@ def init_artifact(
         heads=heads,
         classifier=classifier,
         overlap_reps=overlap,
+    )
+
+
+def from_state(
+    extractors: Sequence[nn.Module],
+    heads: Sequence[nn.Module],
+    classifier: nn.Module,
+    specs: Sequence[ExtractorSpec],
+    *,
+    scenario: str,
+    num_classes: int,
+    protocol: Optional[Dict[str, Any]] = None,
+    metric_name: str = "",
+    metric: float = 0.0,
+    aligned: Optional[Sequence[torch.Tensor]] = None,
+) -> TrainedVFLModel:
+    """The artifact of trained protocol state (the reference's
+    ``from_state``). The modules are used as they are, in eval mode. With
+    ``aligned`` (each party's overlap rows) the overlap reps are the
+    extractors' outputs on them and the feature shapes theirs; without it
+    only MLP parties can be exported, their input width read off the
+    first layer."""
+    if len(specs) != len(extractors):
+        raise ValueError(f"{len(specs)} extractor specs for {len(extractors)} parties")
+    if classifier is None:
+        raise ValueError("no fitted joint classifier: nothing deployable to export")
+    overlap = None
+    if aligned is not None:
+        with torch.inference_mode():
+            overlap = [ext(x) for ext, x in zip(extractors, aligned)]
+        shapes = tuple(tuple(x.shape[1:]) for x in aligned)
+    elif all(s.kind == "mlp" for s in specs):
+        shapes = tuple((e.layers[0].in_features,) for e in extractors)
+    else:
+        raise ValueError("exporting CNN parties needs `aligned=` (their input shape)")
+    for m in (*extractors, *heads, classifier):
+        m.eval()
+    return TrainedVFLModel(
+        scenario=scenario,
+        num_classes=num_classes,
+        feature_shapes=shapes,
+        extractor_specs=tuple(specs),
+        extractors=list(extractors),
+        heads=list(heads),
+        classifier=classifier,
+        protocol=dict(protocol or {}),
+        overlap_reps=overlap,
+        metric_name=metric_name,
+        metric=float(metric),
     )
 
 

@@ -1,0 +1,254 @@
+"""One-shot VFL (Alg. 1) end to end, with its communication ledger.
+
+Counterpart of ``repro.core.protocol::run_one_shot`` at one seed and without
+faults. Every client↔server transfer is logged in a :class:`CommLedger`
+with the reference's events, tags and rounds, so the paper's communication
+columns come from the training path itself:
+
+1. ① clients upload their overlap representations H_o^k (round 1);
+2. ② the server sends back ∇_{H_o^k} L (round 2);
+3. ③ each client clusters its gradient rows into C pseudo-labels;
+4. ④ each client trains its extractor and head by local SSL;
+5. ⑤ clients upload refreshed representations (round 3);
+6. ⑥ the server fits its classifier on them;
+
+then the held-out split is scored (AUC for two classes, else accuracy).
+Everything runs on ``device`` (``cuda`` unless the caller says ``"cpu"``).
+Randomness comes from two generators seeded with ``seed``: one on the CPU
+(weight init, integer schedule seeds) and one on the device (augmentation
+and k-means++ draws, gradient noise).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import asdict, dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from repro_torch.checkpoint.artifact import ExtractorSpec, TrainedVFLModel, from_state
+from repro_torch.core.client import VFLClient, make_client, ssl_task_for
+from repro_torch.core.clustering import cluster_purity
+from repro_torch.core.comm import CommLedger, nbytes
+from repro_torch.core.metrics import accuracy, binary_auc
+from repro_torch.core.server import VFLServer
+from repro_torch.core.ssl import SSLConfig
+from repro_torch.data.vertical import VerticalSplit
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.engine import dispatch
+from repro_torch.engine.local_ssl import SSLHParams, schedule_steps, seed_from, train_party_ssl
+
+KMEANS_RESTARTS = 4  # the reference's step-③ default
+_DEVICE_STREAM = 7919  # offset of the device generator's seed from the host's
+
+
+@dataclass(frozen=True)
+class ProtocolConfig:
+    client_epochs: int = 20  # E_c
+    server_epochs: int = 50  # E_s
+    batch_size: int = 32  # B (paper: 32)
+    client_lr: float = 0.01  # η_c (paper: 0.01)
+    server_lr: float = 0.01  # η_s (paper: 0.01)
+    grad_dp_sigma: float = 0.0  # Gaussian noise on partial grads, × each grad's std
+    kmeans_iters: int = 25
+    unlabeled_ratio: int = 2
+    rep_dtype: torch.dtype = torch.float32
+
+    def ssl_hparams(self) -> SSLHParams:
+        return SSLHParams(
+            epochs=self.client_epochs,
+            batch_size=self.batch_size,
+            learning_rate=self.client_lr,
+            unlabeled_ratio=self.unlabeled_ratio,
+        )
+
+
+@dataclass
+class VFLResult:
+    metric_name: str
+    metric: float
+    ledger: CommLedger
+    clients: List[VFLClient]
+    server: VFLServer
+    extractor_specs: Sequence[ExtractorSpec] = ()
+    cfg: Optional[ProtocolConfig] = None
+    diagnostics: dict = field(default_factory=dict)
+
+    def to_artifact(
+        self, scenario: str = "", split: Optional[VerticalSplit] = None
+    ) -> TrainedVFLModel:
+        """The trained model as a serving artifact; with ``split``, its
+        overlap representations H_o (Eq. 10's keys and values) are the
+        trained extractors' outputs on the aligned rows."""
+        protocol = {}
+        if self.cfg is not None:
+            protocol = asdict(self.cfg)
+            protocol["rep_dtype"] = str(self.cfg.rep_dtype).removeprefix("torch.")
+        return from_state(
+            [c.extractor for c in self.clients],
+            [c.head for c in self.clients],
+            self.server.classifier,
+            self.extractor_specs,
+            scenario=scenario,
+            num_classes=self.server.num_classes,
+            protocol=protocol,
+            metric_name=self.metric_name,
+            metric=self.metric,
+            aligned=None if split is None else split.aligned,
+        )
+
+
+def _build_clients(
+    split: VerticalSplit,
+    specs: Sequence[ExtractorSpec],
+    ssl_cfgs: Sequence[SSLConfig],
+    generator: torch.Generator,
+    device: torch.device,
+) -> List[VFLClient]:
+    clients = []
+    for k, (spec, cfg) in enumerate(zip(specs, ssl_cfgs)):
+        # x̄ for FixMatch-tab comes from the party's local rows: its private
+        # pool, or its aligned block when the pool is empty (full overlap)
+        pool = split.unaligned[k]
+        if pool.dim() == 2 and pool.shape[0] == 0:
+            pool = split.aligned[k]
+        clients.append(
+            make_client(
+                k,
+                spec,
+                tuple(split.aligned[k].shape[1:]),
+                split.num_classes,
+                cfg,
+                generator,
+                device,
+                local_data_for_mean=pool if pool.dim() == 2 else None,
+            )
+        )
+    return clients
+
+
+def _evaluate(server: VFLServer, clients: Sequence[VFLClient], split: VerticalSplit) -> tuple:
+    test_reps = [c.extract(x) for c, x in zip(clients, split.test_aligned)]
+    logits = server.predict_logits(test_reps)
+    if split.num_classes == 2:
+        return "auc", binary_auc(torch.softmax(logits, -1)[:, 1], split.test_labels)
+    return "accuracy", accuracy(logits, split.test_labels)
+
+
+class _StepClock:
+    """Host-clock time of each protocol step, ended by a device sync."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device, self.ms, self._t = device, {}, time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.ms[name] = (now - self._t) * 1e3
+        self._t = now
+
+
+def _log_round(ledger: CommLedger, direction: str, tag: str, payloads: Sequence) -> None:
+    r = ledger.next_round()
+    for k, p in enumerate(payloads):
+        ledger.log_bytes(k, direction, tag, nbytes(p), round=r)
+
+
+def run_one_shot(
+    seed: int,
+    split: VerticalSplit,
+    extractors: Sequence[ExtractorSpec],
+    ssl_cfgs: Sequence[SSLConfig],
+    cfg: Optional[ProtocolConfig] = None,
+    ledger: Optional[CommLedger] = None,
+    device: DeviceLike = None,
+) -> VFLResult:
+    """Alg. 1 one-shot VFL on ``split``: K parties with the extractors of
+    ``extractors`` and the SSL recipes of ``ssl_cfgs``. The split is moved to
+    ``device`` first. ``diagnostics`` carries the k-means purity, the SSL
+    sessions' last metrics and steps, and each step's time (``step_ms``)."""
+    cfg = cfg if cfg is not None else ProtocolConfig()
+    ledger = ledger if ledger is not None else CommLedger()
+    dev = resolve_device(device)
+    split = _to_device(split, dev)
+    host = torch.Generator().manual_seed(seed)
+    draws = torch.Generator(device=dev).manual_seed(seed + _DEVICE_STREAM)
+    clock = _StepClock(dev)
+    clients = _build_clients(split, extractors, ssl_cfgs, host, dev)
+    server = VFLServer(num_classes=split.num_classes)
+    num_classes = split.num_classes
+
+    # ① clients upload overlap representations
+    reps = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(clients, split.aligned)]
+    _log_round(ledger, "up", "reps_overlap", reps)
+    clock.lap("1_extract")
+
+    # ② server computes and sends partial gradients (+ C), optionally noised
+    grads = server.partial_gradients([r.float() for r in reps], split.labels, host)
+    if cfg.grad_dp_sigma > 0:
+        noise = [torch.randn(g.shape, generator=draws, device=dev) for g in grads]
+        grads = [g + cfg.grad_dp_sigma * g.std(correction=0) * n for g, n in zip(grads, noise)]
+    grads = [g.to(cfg.rep_dtype) for g in grads]
+    _log_round(ledger, "down", "partial_grads", grads)
+    clock.lap("2_partial_grads")
+
+    # ③ gradient k-means → pseudo-labels; one batched search when the
+    # parties' gradient matrices share a shape
+    km = (num_classes, cfg.kmeans_iters, KMEANS_RESTARTS)
+    if len({tuple(g.shape) for g in grads}) == 1:
+        stacked = torch.stack(grads).float()
+        pseudo = list(dispatch.pseudo_labels_batched(stacked, *km, generator=draws))
+    else:
+        pseudo = [dispatch.pseudo_labels(g.float(), *km, generator=draws) for g in grads]
+    purity = [cluster_purity(p, split.labels, num_classes) for p in pseudo]
+    clock.lap("3_kmeans")
+
+    # ④ local SSL, one party after another
+    hp = cfg.ssl_hparams()
+    ssl_metrics = []
+    for c, y_k, x_o, x_u in zip(clients, pseudo, split.aligned, split.unaligned):
+        task = ssl_task_for(c, x_o, y_k, x_u)
+        ssl_metrics.append(train_party_ssl(task, hp, seed_from(host), generator=draws))
+    clock.lap("4_local_ssl")
+
+    # ⑤ refreshed representations;  ⑥ the server fits its classifier
+    reps = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(clients, split.aligned)]
+    _log_round(ledger, "up", "reps_overlap_refreshed", reps)
+    clock.lap("5_refresh")
+    server.train_classifier(
+        [r.float() for r in reps],
+        split.labels,
+        epochs=cfg.server_epochs,
+        batch_size=cfg.batch_size,
+        learning_rate=cfg.server_lr,
+        generator=host,
+    )
+    clock.lap("6_server_fit")
+
+    name, metric = _evaluate(server, clients, split)
+    clock.lap("eval")
+    diags: Dict = {
+        "kmeans_purity": purity,
+        "pseudo_labels": pseudo,
+        "ssl_metrics": ssl_metrics,
+        "ssl_steps": [schedule_steps(x.shape[0], hp) for x in split.aligned],
+        "step_ms": clock.ms,
+    }
+    return VFLResult(name, metric, ledger, clients, server, tuple(extractors), cfg, diags)
+
+
+def _to_device(split: VerticalSplit, dev: torch.device) -> VerticalSplit:
+    def move(ts):
+        return None if ts is None else [t.to(dev) for t in ts]
+
+    return VerticalSplit(
+        aligned=move(split.aligned),
+        labels=split.labels.to(dev),
+        unaligned=move(split.unaligned),
+        test_aligned=move(split.test_aligned),
+        test_labels=split.test_labels.to(dev),
+        num_classes=split.num_classes,
+        unaligned_labels=move(split.unaligned_labels),
+    )

@@ -1,0 +1,108 @@
+"""VFL server: label holder, partial gradients, classifier fit.
+
+Counterpart of ``repro.core.server`` for steps ② and ⑥. The server owns Y_o
+and θ_c and sends clients only ∇_{H_o^k} L (and C). The fit is a Python loop
+over the numpy-seeded schedule of ``_fit_schedule`` (clip 5.0, SGD with
+momentum 0.9); the reference's cached ``lax.scan`` session has no
+counterpart.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.ssl import cross_entropy
+from repro_torch.data.loader import epoch_batches
+from repro_torch.engine.local_ssl import seed_from
+from repro_torch.models.extractors import make_classifier
+from repro_torch.optim import ClippedSGD
+
+
+def concat_reps(reps: Sequence[torch.Tensor]) -> torch.Tensor:
+    """h¹ ∘ … ∘ h^K (Eq. 2), party-major."""
+    return torch.cat(list(reps), dim=-1)
+
+
+@dataclass
+class VFLServer:
+    num_classes: int
+    classifier: Optional[nn.Module] = None  # joint f_c
+
+    def _fresh_classifier(self, in_dim: int, generator: torch.Generator, device) -> nn.Module:
+        return make_classifier(in_dim, self.num_classes).init_(generator).to(device)
+
+    # ------------------------------------------------- step ②: partial grads
+    def partial_gradients(
+        self,
+        reps: Sequence[torch.Tensor],
+        labels: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+    ) -> List[torch.Tensor]:
+        """∇_{H_o^k} mean CE(f_c(H¹∘…∘H^K), Y_o) for every k (Alg. 1 l.6),
+        with θ_c initialised on first use from ``generator`` (the paper takes
+        the partial gradients at the freshly initialised classifier)."""
+        parts = [r.detach().requires_grad_(True) for r in reps]
+        if self.classifier is None:
+            if generator is None:
+                raise ValueError("the classifier is not initialised: give a generator")
+            self.classifier = self._fresh_classifier(
+                sum(r.shape[-1] for r in reps), generator, reps[0].device
+            )
+        loss = cross_entropy(self.classifier(concat_reps(parts)), labels).mean()
+        return list(torch.autograd.grad(loss, parts))
+
+    # ------------------------------------------------ step ⑥: train classifier
+    def train_classifier(
+        self,
+        reps: Sequence[torch.Tensor],
+        labels: torch.Tensor,
+        epochs: int = 50,
+        batch_size: int = 32,
+        learning_rate: float = 0.01,
+        *,
+        generator: torch.Generator,
+        seed0: Optional[int] = None,
+    ) -> "VFLServer":
+        """Re-fit a freshly initialised f_c on the refreshed reps. The head's
+        init and, unless given, the schedule seed come from the CPU
+        ``generator``."""
+        h = concat_reps(reps).detach()
+        self.classifier = self._fresh_classifier(h.shape[-1], generator, h.device)
+        seed0 = seed_from(generator) if seed0 is None else seed0
+        schedule = fit_schedule(seed0, h.shape[0], epochs, batch_size)
+        if schedule is not None:
+            fit(self.classifier, h, labels, schedule, learning_rate)
+        return self
+
+    @torch.no_grad()
+    def predict_logits(self, reps: Sequence[torch.Tensor]) -> torch.Tensor:
+        return self.classifier(concat_reps(reps))
+
+
+def fit_schedule(seed0: int, n: int, epochs: int, batch_size: int) -> Optional[np.ndarray]:
+    """The fit's shuffled-epoch schedule (drop-remainder), (S, bs) int64, or
+    None for a no-op fit. Equal ``seed0`` gives the reference's indices."""
+    bs = min(batch_size, n)
+    rows = [idx for e in range(epochs) for idx in epoch_batches(n, bs, seed0 + e)] if bs else []
+    if not rows:
+        return None
+    return np.stack(rows).astype(np.int64)
+
+
+def fit(
+    model: nn.Module, x: torch.Tensor, y: torch.Tensor, schedule: np.ndarray, lr: float
+) -> nn.Module:
+    """Minibatch cross-entropy fit over ``schedule`` (in place), clip 5.0 +
+    SGD with momentum 0.9."""
+    params = list(model.parameters())
+    opt = ClippedSGD(params, lr, momentum=0.9, max_norm=5.0)
+    idx = torch.from_numpy(schedule).to(x.device)
+    for i in range(idx.shape[0]):
+        loss = cross_entropy(model(x[idx[i]]), y[idx[i]]).mean()
+        opt.step(torch.autograd.grad(loss, params))
+    return model

@@ -1,0 +1,23 @@
+"""Data for the port: the numpy-seeded schedules, the vertical split and
+the synthetic generators (counterpart of ``repro.data``)."""
+
+from repro_torch.data.loader import epoch_batches
+from repro_torch.data.synthetic import make_cluster_tabular, make_image_classification
+from repro_torch.data.vertical import (
+    VerticalSplit,
+    make_vfl_partition,
+    split_features,
+    split_from_numpy,
+    split_image_halves,
+)
+
+__all__ = [
+    "VerticalSplit",
+    "epoch_batches",
+    "make_cluster_tabular",
+    "make_image_classification",
+    "make_vfl_partition",
+    "split_features",
+    "split_from_numpy",
+    "split_image_halves",
+]

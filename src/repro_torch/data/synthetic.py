@@ -1,0 +1,95 @@
+"""Structured synthetic datasets, drawn from a seeded ``torch.Generator``.
+
+Counterparts of ``repro.data.synthetic.make_cluster_tabular`` (the hardened
+``hard/*`` task) and ``make_image_classification`` (CIFAR-like class
+templates plus noise), with the same formulas and defaults. PyTorch cannot
+replay JAX's random streams, so the values differ from the reference's for
+the same seed; shapes, label balance and class structure do not. Parity
+tests carry the reference's own data across instead
+(:func:`repro_torch.data.vertical.split_from_numpy`).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def _generator(seed: int, device: torch.device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def make_cluster_tabular(
+    num_samples: int,
+    *,
+    seed: int = 0,
+    device: DeviceLike = None,
+    num_informative: int = 24,
+    num_nuisance: int = 16,
+    num_clusters: int = 12,
+    num_classes: int = 2,
+    cluster_std: float = 0.3,
+    nuisance_std: float = 2.0,
+    label_noise: float = 0.15,
+    separation: float = 3.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A mixture of compact, well-separated clusters with nuisance columns
+    interleaved into every party's block and ``label_noise`` flips.
+    Returns x (N, informative + nuisance) float32 and y (N,) int64."""
+    dev = resolve_device(device)
+    g = _generator(seed, dev)
+    centers = torch.randn(num_clusters, num_informative, generator=g, device=dev)
+    centers = (
+        separation
+        * centers
+        / torch.linalg.vector_norm(centers, dim=1, keepdim=True)
+        * (num_informative / 8) ** 0.5
+    )
+    z = torch.randint(0, num_clusters, (num_samples,), generator=g, device=dev)
+    x_inf = centers[z] + cluster_std * torch.randn(
+        num_samples, num_informative, generator=g, device=dev
+    )
+    x_nui = nuisance_std * torch.randn(num_samples, num_nuisance, generator=g, device=dev)
+    y = (torch.arange(num_clusters, device=dev) % num_classes)[z]
+    flip = torch.rand(num_samples, generator=g, device=dev) < label_noise
+    y = torch.where(flip, (y + 1) % num_classes, y)
+    hi, hn = num_informative // 2, num_nuisance // 2
+    x = torch.cat([x_inf[:, :hi], x_nui[:, :hn], x_inf[:, hi:], x_nui[:, hn:]], dim=1)
+    return x.float(), y
+
+
+def make_image_classification(
+    num_samples: int,
+    *,
+    seed: int = 0,
+    device: DeviceLike = None,
+    num_classes: int = 10,
+    image_size: int = 32,
+    channels: int = 3,
+    template_strength: float = 1.0,
+    cross_half_fraction: float = 0.35,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Class-conditional low-frequency templates plus noise, NHWC.
+
+    ``cross_half_fraction`` of each template lives in a component that is
+    label-informative only when both halves are seen (sign-coupled across
+    the vertical midline). Returns x (N, H, W, C) float32, y (N,) int64."""
+    dev = resolve_device(device)
+    g = _generator(seed, dev)
+    h = w = image_size
+    coarse = torch.randn(num_classes, channels, 4, 4, generator=g, device=dev)
+    templates = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+    templates = templates.permute(0, 2, 3, 1)  # NHWC
+    cross = torch.randn(num_classes, h, w // 2, channels, generator=g, device=dev)
+    sign = (-1.0) ** torch.arange(num_classes, device=dev, dtype=torch.float32)
+    cross_full = torch.cat([cross, cross * sign[:, None, None, None]], dim=2)
+    templates = (1 - cross_half_fraction) * templates + cross_half_fraction * cross_full
+    labels = torch.randint(0, num_classes, (num_samples,), generator=g, device=dev)
+    x = template_strength * templates[labels]
+    x += torch.randn(num_samples, h, w, channels, generator=g, device=dev)
+    x /= 1.0 + template_strength
+    return x.float(), labels

@@ -1,19 +1,53 @@
-"""Kernel dispatch for the serving path's Eq. 10 estimates.
+"""Kernel dispatch for step ③'s k-means and the Eq. 10 estimates.
 
-Counterpart of the estimation half of ``repro.engine.dispatch``. The
-reference routes through a ``use_kernels`` switch and a compile-session
-cache; here the route follows the tensors' device (the CUDA kernel on the
-card, the plain version on the CPU) and PyTorch runs eagerly, so neither the
-switch nor the cache has a counterpart.
+Counterpart of ``repro.engine.dispatch``. The reference routes through a
+``use_kernels`` switch and a compile-session cache; here the route follows
+the tensors' device (the CUDA kernels on the card, the plain versions on
+the CPU) and PyTorch runs eagerly, so neither the switch nor the cache has
+a counterpart.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
-from repro_torch.core import estimator
+from repro_torch.core import clustering, estimator
+
+
+def pseudo_labels(
+    partial_grads: torch.Tensor,
+    num_classes: int,
+    kmeans_iters: int = 25,
+    restarts: int = 4,
+    *,
+    draws: Optional[clustering.SeedingDraws] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Step ③ for one party: k-means over ∇_{H_o^k} L → Ŷ_o^k (N,) int64.
+    On the card every assignment is a ``kmeans`` kernel launch
+    (``kmeans_iters + 2`` of them)."""
+    return clustering.gradient_pseudo_labels(
+        partial_grads, num_classes, kmeans_iters, restarts, draws=draws, generator=generator
+    )
+
+
+def pseudo_labels_batched(
+    partial_grads: torch.Tensor,
+    num_classes: int,
+    kmeans_iters: int = 25,
+    restarts: int = 4,
+    *,
+    draws: Optional[clustering.SeedingDraws] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Step ③ for a stack of parties (B, N, d) → (B, N) int64, restarts and
+    parties on one axis: each Lloyd iteration is one launch over B·R, the
+    inertia one more, and the final assignment one over B."""
+    return clustering.gradient_pseudo_labels_batched(
+        partial_grads, num_classes, kmeans_iters, restarts, draws=draws, generator=generator
+    )[0]
 
 
 def estimate_missing(

@@ -7,5 +7,6 @@ and ``ref.py`` (the plain PyTorch version). :mod:`._build` compiles the
 sources with ``nvcc`` at first use; importing a kernel module builds
 nothing.
 
+* ``kmeans`` — step ③'s cluster assignment (distance + argmin);
 * ``sdpa_estimator`` — Eq. 10 flash-style SDPA estimation.
 """

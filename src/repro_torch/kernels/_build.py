@@ -40,7 +40,7 @@ NVCC_FLAGS = [
     "-v",
 ]
 # Every kernel directory with CUDA sources; chip_smoke.py builds them all.
-KERNELS = ("sdpa_estimator",)
+KERNELS = ("kmeans", "sdpa_estimator")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -92,7 +92,9 @@ class ResBlock(nn.Module):
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.gn1(h))
         if self.proj is not None:
-            shortcut = _conv_same(y, self.proj)
+            # contiguous: the CPU build's oneDNN backward of a strided 1x1
+            # conv over a channels-last input crashes (torch 2.13 CPU)
+            shortcut = _conv_same(y.contiguous(), self.proj)
         elif self.stride != 1:
             shortcut = h[:, :, :: self.stride, :: self.stride]
         else:

@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from repro_torch.checkpoint import ExtractorSpec, init_artifact
+from repro_torch.core import clustering
+from repro_torch.kernels.kmeans import ops as kops
+from repro_torch.kernels.kmeans import ref as kref
 from repro_torch.kernels.sdpa_estimator import ops, ref
 from repro_torch.launch.vfl_serve import ServingEngine
 
@@ -19,6 +22,11 @@ from repro_torch.launch.vfl_serve import ServingEngine
 # few ulps on O(1) outputs. Held against a float64 plain version, 2e-5 is the
 # reference package's own f32 kernel tolerance.
 TOL = 2e-5
+# k-means assignments compare exactly except on rows whose best two squared
+# distances (unit rows: in [0, 4]) are within NEAR_TIE: the kernel and the
+# plain version sum the d-long dots in different orders. Such rows may
+# disagree, at most 0.1 % of a launch's rows.
+NEAR_TIE = 1e-5
 
 pytestmark = pytest.mark.gpu
 
@@ -88,3 +96,61 @@ def test_partial_party_query_is_one_launch(cuda):
         ]
         want = art.classifier(torch.cat(reps, dim=-1))
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _unit(shape, device, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+    return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (8, 2048, 128, 10),  # step ③'s Lloyd and inertia launches (K·R = 2·4)
+        (2, 2048, 128, 10),  # its final assignment (K = 2)
+        (8, 32, 16, 2),  # the tabular path's launches
+        (2, 32, 16, 2),
+        (3, 1000, 77, 37),  # odd sizes: ragged row, centre and column tiles
+        (1, 4096, 1024, 1000),  # centres far beyond shared memory
+        (1, 1, 1, 1),
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_kernel_matches_plain_version(shape, dtype, cuda):
+    b, n, d, c = shape
+    x, m = _unit((b, n, d), cuda, 0, dtype), _unit((b, c, d), cuda, 1, dtype)
+    before = kops.LAUNCHES
+    got, mind = kops.kmeans_assign_min_batched(x, m)
+    torch.cuda.synchronize()
+    assert kops.LAUNCHES == before + 1
+    xd, md = x.double(), m.double()  # a float64 oracle of the same expansion
+    dots = xd @ md.transpose(1, 2)
+    dist = (xd * xd).sum(-1, keepdim=True) - 2 * dots + (md * md).sum(-1)[:, None]
+    top = dist.topk(min(2, c), dim=-1, largest=False).values
+    gap = top[..., 1] - top[..., 0] if c > 1 else torch.full_like(top[..., 0], 9.0)
+    want = dist.argmin(-1).int()
+    exempt = gap <= NEAR_TIE
+    assert torch.equal(got[~exempt], want[~exempt])
+    assert float((got != want).float().mean()) <= 1e-3
+    torch.testing.assert_close(mind.double(), top[..., 0], atol=1e-5, rtol=0)
+
+
+def test_kmeans_kernel_takes_stride0_batch_views_and_ties(cuda):
+    x = _unit((1, 300, 48), cuda, 2).expand(4, -1, -1)
+    m = _unit((4, 12, 48), cuda, 3)
+    m[:, 7] = m[:, 2]  # an exact tie: the lower index wins
+    got = kops.kmeans_assign_batched(x, m)
+    want = kref.kmeans_assign_batched(x, m)
+    assert not bool((got == 7).any())
+    assert float((got == want).float().mean()) >= 0.999
+
+
+def test_step3_launches_the_kernel_for_every_assignment(cuda):
+    g = torch.randn(2, 256, 16, device=cuda)
+    before = kops.LAUNCHES
+    labels, _ = clustering.gradient_pseudo_labels_batched(
+        g, 3, num_iters=5, restarts=4, generator=torch.Generator(device=cuda).manual_seed(0)
+    )
+    assert kops.LAUNCHES - before == 5 + 2  # Lloyd iterations, inertia, final
+    assert labels.shape == (2, 256)
