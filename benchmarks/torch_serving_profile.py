@@ -46,6 +46,8 @@ N_O = 2048
 KINDS = (
     ("sdpa_estimator", "sdpa_estimator (CUDA kernel)"),
     ("kmeans_assign", "kmeans (CUDA kernel)"),
+    ("rmsnorm_kernel", "rmsnorm (CUDA kernel)"),
+    ("decode_attention", "decode_attention (CUDA kernel)"),
     ("conv", "convolution (cuDNN)"),
     ("fprop", "convolution (cuDNN)"),
     ("fft", "convolution (cuDNN)"),
@@ -54,6 +56,7 @@ KINDS = (
     ("GroupNorm", "group norm"),
     ("FusedParams", "group norm"),
     ("gemm", "matmul"),
+    ("gemv", "matmul"),
     ("elementwise", "elementwise / copy / pad"),
     ("copy", "elementwise / copy / pad"),
     ("Memcpy", "elementwise / copy / pad"),

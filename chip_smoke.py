@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Drives ``repro_torch`` (never JAX, never the reference package) through its
-two paths, training and serving. Phases, each of which fails the run
-(nonzero exit, no result line) if it goes wrong:
+three paths: training, serving, and model-zoo serving. Phases, each of
+which fails the run (nonzero exit, no result line) if it goes wrong:
 
 1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
 2. kernels: build every CUDA kernel from ``src/repro_torch/kernels/*/csrc``
@@ -27,16 +27,30 @@ two paths, training and serving. Phases, each of which fails the run
    ``predict_logits``;
 6. partial-party queries (K = 2 over B's 2048 refreshed overlap reps: one
    B = 1 launch each; K = 4 (16, 16, 3) patches with seeded random weights:
-   one B = 3 launch each), held against the plain route on the same inputs.
+   one B = 3 launch each), held against the plain route on the same inputs;
+7. zoo, small: reduced phi4-mini (2 layers, G = 2, f32 activations) served
+   on the card and on the CPU's plain route with the same weights: equal
+   greedy tokens, logits within 1e-4;
+8. zoo, full width (the third path): ``phi4-mini-3.8b`` at its own config
+   (3,836,021,760 f32 parameters, seeded on the card). ``launch/serve``'s
+   prefill + greedy decode at batch 4, prompt 32, 16 new tokens, once to
+   warm up and once timed (p50/p99 per token step, tokens/s, peak memory);
+   prefill ≡ sequential decode in f32 activations (max relative logit
+   difference <= 1e-4); one ``make_zoo_extractor`` forward. Each part's
+   RMSNorm and decode-attention launches are checked exactly: 2L + 1 = 65
+   and L = 32 per decode step, 65 and 0 per ``prefill_fn`` or extractor
+   forward.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
-5-6) and read just after. Output ends with a ``{"kernels": [...]}`` line,
+5-6, then 8) and read just after. Output ends with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -51,12 +65,21 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import scenarios  # noqa: E402
 from repro_torch.checkpoint import ExtractorSpec, init_artifact  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.protocol import KMEANS_RESTARTS, ProtocolConfig, run_one_shot  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
 from repro_torch.kernels.kmeans import ops as kops  # noqa: E402
 from repro_torch.kernels.kmeans import ref as kref  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
 from repro_torch.launch.vfl_serve import ServingEngine, serve_traffic  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.models.zoo_extractor import make_zoo_extractor  # noqa: E402
 
 SEED = 0
 N_O = 2048  # overlap rows: the Eq. 10 keys/values
@@ -112,6 +135,44 @@ IMAGE_B = scenarios.ScenarioSpec(
     blocks_per_stage=2,
 )
 B_CLIENT_EPOCHS = 20
+# RMSNorm kernel vs plain version: f32 outputs within 1e-5 (both sum d
+# squares in f32, in different orders); bf16 outputs within one rounding
+# step, |err| <= 2e-2 + 2e-2·|want| (2^-8 relative: 0.03 at |y| in [4, 8)).
+RMS_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-2, 2e-2)}  # (abs, rel)
+# (rows, d, x dtype), scale f32 as the zoo passes it: the zoo's decode step
+# (B = 4), its prompt forward (4 x 32 tokens), the reference op's own
+# example in both dtypes, an odd d.
+RMS_SHAPES = [
+    (4, 3072, torch.bfloat16),
+    (128, 3072, torch.bfloat16),
+    (2048, 4096, torch.bfloat16),
+    (2048, 4096, torch.float32),
+    (231, 130, torch.float32),
+]
+# Decode attention vs plain version: f32 outputs, softmax-weighted means of
+# bf16 cache rows computed in f32 on both sides; a few ulps. 2e-5 is the
+# reference package's own f32 kernel tolerance, far inside the 2e-2 a bf16
+# output would need, and a masking error moves outputs by O(0.01) or more.
+DECODE_TOL = 2e-5
+# (B, H, Hkv, S, dh, ragged), all bf16 caches in the zoo's (B, S, Hkv, dh)
+# layout: phi4-mini's decode step (48-slot cache), the same with per-sequence
+# lengths as the path passes them, long context (1 GiB of K+V), gemma-like
+# 256-wide heads, an odd shape, and long context with per-sequence lengths.
+DECODE_SHAPES = [
+    (4, 24, 8, 48, 128, False),
+    (4, 24, 8, 48, 128, True),
+    (8, 24, 8, 32768, 128, False),
+    (1, 16, 16, 4096, 256, False),
+    (2, 4, 1, 77, 80, False),
+    (8, 24, 8, 32768, 128, True),
+]
+ZOO_ARCH = "phi4-mini-3.8b"
+ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 32, 16
+ZOO_PARAMS = 3_836_021_760  # 32 x 100,669,440 per layer + 614,596,608 embedding + 3,072
+# prefill ≡ sequential decode at full width in f32 activations, TF32 off: the
+# blocked-scan prefill and the decode kernel sum in different orders; logits
+# relative to their scale (the reference's own test holds 2e-5 at 2 layers).
+ZOO_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -253,6 +314,89 @@ def phase_kmeans(gen) -> dict:
     return rows[0]  # the Lloyd launch: 25 of every run's 27
 
 
+def phase_rmsnorm(gen) -> dict:
+    """The RMSNorm kernel vs its plain version and ``F.rms_norm``."""
+    rows_out = []
+    for rows, d, dtype in RMS_SHAPES:
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+        scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        got, want = rops.rms_norm(x, scale), rref.rms_norm(x, scale)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and bool(torch.isfinite(got).all()), f"rmsnorm at {rows, d}")
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        atol, rtol = RMS_TOL[dtype]
+        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        check(ok, f"rmsnorm {rows, d, dtype}: max|err| {err} past {atol} + {rtol}·|want|")
+        lib_scale = scale.to(dtype)
+        row = {
+            "shape": [rows, d, str(dtype).split(".")[-1]],
+            "max_abs_err": err,
+            "ms": time_ms(lambda: rops.rms_norm(x, scale)),
+            "plain_ms": time_ms(lambda: rref.rms_norm(x, scale)),
+            "library_ms": time_ms(lambda: F.rms_norm(x, (d,), lib_scale, 1e-6)),
+        }
+        nbytes = 2 * rows * d * x.element_size() + 4 * d
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 4 * rows * d / H100_F32_FLOPS
+        row["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        row["bound_by"] = "bytes" if t_bytes > t_ops else "operations"
+        rows_out.append(row)
+        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ("ms", "plain_ms", "library_ms"))
+        print(
+            f"[kernel] rmsnorm rows={rows} d={d} {row['shape'][2]} (scale f32): max|err| "
+            f"{err:.3e} | {times} | bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+        )
+    return rows_out[0]  # the decode step's norm: 65 launches a step
+
+
+def phase_decode_attention(gen) -> dict:
+    """The decode-attention kernel vs its plain version and
+    ``F.scaled_dot_product_attention(enable_gqa=True)``, on caches in the
+    zoo's (B, S, Hkv, dh) layout viewed as (B, Hkv, S, dh)."""
+    rows_out = []
+    for b, h, hkv, s, dh, ragged in DECODE_SHAPES:
+        q = torch.randn(b, h, dh, generator=gen, device="cuda")
+        kc, vc = (
+            torch.randn(b, s, hkv, dh, generator=gen, device="cuda").bfloat16().transpose(1, 2)
+            for _ in range(2)
+        )
+        lengths = None
+        if ragged:
+            lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        got = dops.decode_attention(q, kc, vc, lengths)
+        want = dref.decode_attention(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"non-finite decode attention at {(b, h, s)}")
+        check(err <= DECODE_TOL, f"decode attention max|err| {err} > {DECODE_TOL} at {(b, h, s)}")
+        q4 = q.bfloat16()[:, :, None, :]
+        mask = None
+        if ragged:
+            mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+        keys = int(lengths.sum()) if ragged else b * s  # the cache rows this run reads
+        row = {
+            "shape": [b, h, hkv, s, dh] + (["ragged"] if ragged else []),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: dops.decode_attention(q, kc, vc, lengths)),
+            "plain_ms": time_ms(lambda: dref.decode_attention(q, kc, vc, lengths)),
+            "library_ms": time_ms(
+                lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True)
+            ),
+        }
+        nbytes = 2 * keys * hkv * dh * 2 + 2 * b * h * dh * 4 + (4 * b if ragged else 0)
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 4 * h * dh * keys / H100_F32_FLOPS
+        row["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        row["bound_by"] = "bytes" if t_bytes > t_ops else "operations"
+        rows_out.append(row)
+        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ("ms", "plain_ms", "library_ms"))
+        print(
+            f"[kernel] decode_attention B={b} H={h} Hkv={hkv} S={s} dh={dh} bf16 cache"
+            f"{' ragged lengths' if ragged else ''}: max|err| {err:.3e} | {times} | "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+        )
+    return rows_out[0]  # the decode step's launch: 32 a step
+
+
 def phase_one_shot_a(line: str) -> int:
     """Alg. 1 on hard/overlap-32 (the port's own data); returns the k-means
     launches it should have made."""
@@ -374,12 +518,159 @@ def phase_partial(art, gen, queries: int, line: str) -> int:
     return queries
 
 
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _f32_cache(cache: dict) -> dict:
+    """A decode cache with float32 k/v, for the f32 activation policy."""
+    blocks = cache["blocks"]
+    return {"blocks": {k: t.float() if t.is_floating_point() else t for k, t in blocks.items()}}
+
+
+def phase_zoo_small() -> None:
+    """Reduced phi4-mini (G = 2, f32 activations) on the card and on the
+    CPU's plain route, with the same weights and prompt. The logits of every
+    decode step are compared: greedy tokens of random weights repeat, so
+    their equality alone says little."""
+    cfg = dataclasses.replace(
+        get_config(ZOO_ARCH).reduced(), num_kv_heads=2, activation_dtype="float32"
+    )
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    prompt = torch.randint(
+        0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(SEED), dtype=torch.int32
+    )
+    outs = {}
+    for dev, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
+        steps = []
+
+        def decode(params_, cache_, batch):
+            logits_, cache_ = model.decode_fn(params_, cache_, batch)
+            steps.append(logits_.cpu())
+            return logits_, cache_
+
+        cache = _f32_cache(zeros_like_spec(model.cache_shapes(2, 16), dev))
+        logits, cache = serve.prefill(decode, p, cache, prompt.to(dev))
+        toks, _ = serve.greedy_decode(decode, p, cache, logits, 8, 8)
+        outs[dev] = (torch.stack(steps), toks.cpu())
+    check(outs["cuda"][0].shape[0] == 16, "reduced zoo: 16 decode steps")
+    rel = max(_rel(c, g) for c, g in zip(outs["cuda"][0], outs["cpu"][0]))
+    check(rel <= ZOO_RTOL, f"reduced zoo card vs CPU logits differ by {rel} (relative)")
+    check(torch.equal(outs["cuda"][1], outs["cpu"][1]), "reduced zoo greedy tokens differ")
+    print(
+        f"[zoo] reduced {ZOO_ARCH} (2 layers, d 256, G 2, f32): card vs CPU plain route "
+        f"logits of all 16 decode steps max rel diff {rel:.2e}, greedy tokens equal "
+        f"{outs['cuda'][1][0].tolist()}"
+    )
+
+
+def phase_zoo(line: str) -> dict:
+    """phi4-mini-3.8b at full width through ``launch/serve``; returns the
+    path's launch counts. Every part's launches are checked exactly."""
+    cfg = get_config(ZOO_ARCH)
+    n_layers = cfg.num_layers
+    per_step = (2 * n_layers + 1, n_layers)  # rmsnorm, decode_attention per decode step
+    totals = {"rmsnorm": 0, "decode_attention": 0}
+
+    def counted(want_rms: int, want_dec: int, what: str) -> None:
+        """Check one part's launches exactly, add them to the path's, and
+        count the next part from 0."""
+        torch.cuda.synchronize()
+        got = (rops.LAUNCHES, dops.LAUNCHES)
+        check(got == (want_rms, want_dec), f"{what}: launches {got}, not {want_rms, want_dec}")
+        totals["rmsnorm"] += got[0]
+        totals["decode_attention"] += got[1]
+        rops.LAUNCHES = dops.LAUNCHES = 0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == ZOO_PARAMS, f"{ZOO_ARCH}: {n_params} parameters, not {ZOO_PARAMS}")
+    gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    print(
+        f"[zoo] {ZOO_ARCH}: {n_params} parameters ({gb:.2f} GB f32), {n_layers} layers, d "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied; seeded on the card in {init_s:.2f} s"
+    )
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompt = torch.randint(
+        0, cfg.vocab_size, (ZOO_BATCH, ZOO_PROMPT), generator=gen, device="cuda", dtype=torch.int32
+    )
+    steps = ZOO_PROMPT + ZOO_GEN
+    decode = model.decode_fn
+    results = []
+    for timed in (False, True):
+        rec = serve.LatencyRecorder() if timed else None
+        cache = zeros_like_spec(model.cache_shapes(ZOO_BATCH, steps), "cuda")
+        logits, cache = serve.prefill(decode, params, cache, prompt, rec)
+        first = logits
+        out, cache = serve.greedy_decode(decode, params, cache, logits, ZOO_PROMPT, ZOO_GEN, rec)
+        counted(steps * per_step[0], steps * per_step[1], "serve (per decode step 65 and 32)")
+        results.append((first, out, rec))
+    first, out, rec = results[1]
+    check(out.shape == (ZOO_BATCH, ZOO_GEN), f"generated {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "generated tokens out of range")
+    check(torch.equal(out, results[0][1]), "the timed run's tokens differ from the warm-up's")
+    s = rec.summary()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(
+        f"[zoo] serve batch {ZOO_BATCH}, prompt {ZOO_PROMPT}, {ZOO_GEN} new tokens ({s['batches']} "
+        f"decode steps, bf16 activations, f32 weights): per-token step p50 {s['p50_ms']:.3f} ms "
+        f"p99 {s['p99_ms']:.3f} ms mean {s['mean_ms']:.3f} ms, {s['rows_per_s']:.1f} tokens/s | "
+        f"peak memory {peak:.2f} GB | sequence 0: {out[0].tolist()} | {line}"
+    )
+    print(json.dumps({"zoo_serve": s, "peak_memory_gb": peak}))
+
+    # prefill ≡ sequential decode, bf16 (reported) and f32 (held to ZOO_RTOL)
+    pre_bf16 = model.prefill_fn(params, {"tokens": prompt})
+    counted(per_step[0], 0, "prefill_fn (65 and 0)")
+    rel_bf16 = _rel(pre_bf16, first)
+    model32 = build_model(dataclasses.replace(cfg, activation_dtype="float32"))
+    pre32 = model32.prefill_fn(params, {"tokens": prompt})
+    counted(per_step[0], 0, "f32 prefill_fn (65 and 0)")
+    cache = _f32_cache(zeros_like_spec(model32.cache_shapes(ZOO_BATCH, ZOO_PROMPT), "cuda"))
+    dec32, _ = serve.prefill(model32.decode_fn, params, cache, prompt)
+    counted(ZOO_PROMPT * per_step[0], ZOO_PROMPT * per_step[1], "f32 sequential decode")
+    check(pre32.dtype == dec32.dtype == torch.float32, "f32 logits")
+    check(bool(torch.isfinite(pre32).all() and torch.isfinite(dec32).all()), "non-finite logits")
+    rel32 = _rel(dec32, pre32)
+    check(rel32 <= ZOO_RTOL, f"f32 prefill vs sequential decode differ by {rel32} (relative)")
+    print(
+        f"[zoo] prefill_fn ≡ sequential decode over the {ZOO_PROMPT}-token prompt: f32 "
+        f"activations max rel logit diff {rel32:.3e} (limit {ZOO_RTOL:g}, TF32 off); bf16 "
+        f"activations {rel_bf16:.3e}"
+    )
+    del params, model, model32, cache
+    torch.cuda.empty_cache()
+
+    ext = make_zoo_extractor(cfg, rep_dim=128, device="cuda")
+    ext.init_(torch.Generator(device="cuda").manual_seed(SEED + 2))
+    rows = torch.randint(0, cfg.vocab_size, (8, 64), generator=gen, device="cuda")
+    with torch.no_grad():
+        reps = ext(rows)
+    counted(per_step[0], 0, "zoo extractor forward (65 and 0)")
+    check(reps.shape == (8, 128) and bool(torch.isfinite(reps).all()), "zoo extractor reps")
+    print(
+        f"[zoo] make_zoo_extractor({ZOO_ARCH}, rep_dim 128) forward on 8 rows of 64 tokens: "
+        f"reps {tuple(reps.shape)} finite, |rep| mean {reps.abs().mean().item():.4e}"
+    )
+    del ext
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke run needs a GPU", file=sys.stderr)
         return 1
     line = phase_device()
-    t0 = time.time()
+    t_start = t0 = time.time()
     _build.build()
     print(f"[build] {', '.join(_build.KERNELS)} built in {time.time() - t0:.1f}s")
     for name in _build.KERNELS:
@@ -390,10 +681,14 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sdpa_row = phase_sdpa(gen)
     kmeans_row = phase_kmeans(gen)
+    t0 = time.time()
+    rms_row = phase_rmsnorm(gen)
+    decode_row = phase_decode_attention(gen)
+    zoo_kernels_s = time.time() - t0
 
     # ---- the training path: counters from 0, read right after
     torch.cuda.synchronize()
-    ops.LAUNCHES = kops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
     expected_km = phase_one_shot_a(line)
     art_b, runs_b = phase_one_shot_b(line)
     expected_km += runs_b
@@ -404,6 +699,7 @@ def main() -> int:
         f"kmeans launched {km_launches} times, expected {expected_km}",
     )
     check(sdpa_in_training == 0, f"sdpa_estimator launched {sdpa_in_training} times in training")
+    check(rops.LAUNCHES == dops.LAUNCHES == 0, "a zoo kernel launched in training")
     print(
         f"[path] training: kmeans launches {km_launches} (expected {expected_km}: per run "
         f"{runs_b - 2} Lloyd iterations over K·R = 2·{KMEANS_RESTARTS} + 1 inertia + 1 final)"
@@ -414,7 +710,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- the serving path: counters from 0, read right after
-    ops.LAUNCHES = kops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
     phase_serving(art_b, gen, line)
     expected = phase_partial(art_b, gen, 4, line)
     expected += phase_partial(patches, gen, 3, line)
@@ -422,7 +718,32 @@ def main() -> int:
     launches = ops.LAUNCHES
     check(launches == expected, f"sdpa_estimator launched {launches} times, expected {expected}")
     check(kops.LAUNCHES == 0, f"kmeans launched {kops.LAUNCHES} times in serving")
+    check(rops.LAUNCHES == dops.LAUNCHES == 0, "a zoo kernel launched in VFL serving")
     print(f"[path] serving: sdpa_estimator launches {launches} (expected {expected})")
+
+    t0 = time.time()
+    phase_zoo_small()
+    zoo_small_s = time.time() - t0
+    del art_b, patches
+    torch.cuda.empty_cache()
+
+    # ---- the model-zoo serving path: counters from 0, read right after
+    torch.cuda.synchronize()
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    t0 = time.time()
+    zoo = phase_zoo(line)
+    torch.cuda.synchronize()
+    zoo_s = time.time() - t0
+    check(ops.LAUNCHES == kops.LAUNCHES == 0, "a VFL kernel launched on the zoo path")
+    print(
+        f"[path] zoo: rmsnorm launches {zoo['rmsnorm']}, decode_attention launches "
+        f"{zoo['decode_attention']} (each part exactly 65 / 32 per decode step, 65 / 0 per "
+        f"prefill_fn and extractor forward) in {zoo_s:.1f} s"
+    )
+    print(
+        f"[time] {time.time() - t_start:.1f} s from the build on; the zoo's share: kernel phases "
+        f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s"
+    )
 
     def entry(name, source, replaces, count, row):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -447,6 +768,20 @@ def main() -> int:
             "src/repro/kernels/kmeans/kernel.py:32",
             km_launches,
             kmeans_row,
+        ),
+        entry(
+            "rmsnorm",
+            "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+            "src/repro/kernels/rmsnorm/kernel.py:21",
+            zoo["rmsnorm"],
+            rms_row,
+        ),
+        entry(
+            "decode_attention",
+            "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:25",
+            zoo["decode_attention"],
+            decode_row,
         ),
     ]
     print(json.dumps({"kernels": kernels}))

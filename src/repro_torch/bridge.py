@@ -12,17 +12,28 @@ nested dict of numpy arrays (or tensors) keyed exactly as
 The port stores ``nn.Linear`` weights as ``(out, in)`` and conv kernels as
 OIHW, so dense weights are transposed and conv kernels permuted
 ``(3, 2, 0, 1)`` on the way in (and back on the way out).
+
+Model-zoo pytrees (``repro.models.model_zoo``) are keyed ``embed/tok`` (and
+``embed/unembed`` when untied), ``final_ln_scale`` and ``blocks/{ln1_scale,
+ln2_scale, attn/{w_q, w_k, w_v, w_o[, b_q, b_k, b_v]}, ffn/{w_gate, w_up,
+w_down}}`` with a leading L axis, plus ``rep_head`` for the zoo extractor.
+The port keeps the reference's ``(in, out)`` layout there, so those leaves
+copy as they are; the L axis becomes the index into ``blocks``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.extractors import CNNExtractor, Dense
+from repro_torch.models.model_zoo import DecoderLM
+from repro_torch.models.zoo_extractor import ZooExtractor
 
 Tree = Dict[str, Any]
 
@@ -123,3 +134,70 @@ def to_jax_params(module: nn.Module) -> Tree:
         tree["head_b"] = _numpy(module.head.bias)
         return tree
     raise TypeError(f"no reference layout for {type(module).__name__}")
+
+
+def _zoo_leaves(module: nn.Module) -> Iterator[Tuple[Tuple[str, ...], int, nn.Parameter]]:
+    """(reference path, block index or -1, parameter) for every parameter of
+    a :class:`DecoderLM` or :class:`ZooExtractor`."""
+    for name, p in module.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "backbone":
+            parts = parts[1:]
+        if parts[0] == "blocks":
+            yield ("blocks", *parts[2:]), int(parts[1]), p
+        else:
+            yield tuple(parts), -1, p
+
+
+def _flat(tree: Tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def zoo_params_from_reference(tree: Tree, cfg: ArchConfig, device: DeviceLike = None):
+    """A reference model-zoo pytree as the port's module: a
+    :class:`ZooExtractor` when the tree has ``rep_head``, else the
+    :class:`DecoderLM`, on ``device`` (``cuda`` unless the caller says
+    ``cpu``). Raises ``ValueError`` on a missing or extra key or a shape
+    that does not fit."""
+    leaves = _flat(tree)
+    dev = resolve_device(device)
+    if ("rep_head",) in leaves:
+        module = ZooExtractor(cfg, int(np.shape(leaves[("rep_head",)])[-1]), dev)
+    else:
+        module = DecoderLM(cfg, dev)
+    expected = {path for path, _, _ in _zoo_leaves(module)}
+    if set(leaves) != expected:
+        missing = sorted("/".join(k) for k in expected - set(leaves))
+        extra = sorted("/".join(k) for k in set(leaves) - expected)
+        raise ValueError(f"zoo tree keys differ: missing {missing}, unexpected {extra}")
+    for path, layer, p in _zoo_leaves(module):
+        value = _tensor(leaves[path])
+        _set(p, value if layer < 0 else value[layer], "/".join(path))
+    return module
+
+
+def zoo_params_to_reference(module: nn.Module) -> Tree:
+    """The inverse of :func:`zoo_params_from_reference`: a reference-keyed
+    pytree of float32 numpy arrays, the blocks stacked on a leading L axis."""
+    stacked: Dict[Tuple[str, ...], list] = {}
+    tree: Tree = {}
+    for path, layer, p in _zoo_leaves(module):
+        if layer >= 0:
+            stacked.setdefault(path, []).append(_numpy(p))
+            continue
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _numpy(p)
+    for path, arrays in stacked.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.stack(arrays)
+    return tree

@@ -8,5 +8,8 @@ sources with ``nvcc`` at first use; importing a kernel module builds
 nothing.
 
 * ``kmeans`` — step ③'s cluster assignment (distance + argmin);
-* ``sdpa_estimator`` — Eq. 10 flash-style SDPA estimation.
+* ``sdpa_estimator`` — Eq. 10 flash-style SDPA estimation;
+* ``rmsnorm`` — the model zoo's fused RMSNorm (2L + 1 per forward);
+* ``decode_attention`` — the model zoo's GQA flash-decode (one per layer
+  per decode step), reading the zoo's KV cache in place.
 """

@@ -13,7 +13,8 @@ unchanged one loads the library already there. No ``nvcc``, or a failed
 build, raises: there is no fallback.
 
 ``ptxas -v`` output (registers, shared memory, spills per kernel) is kept
-beside each library as ``<name>-<hash>.log``.
+beside each library as ``<name>-<hash>.log``. :func:`call` invokes a loaded
+entry point on a device's current stream.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
@@ -40,7 +43,7 @@ NVCC_FLAGS = [
     "-v",
 ]
 # Every kernel directory with CUDA sources; chip_smoke.py builds them all.
-KERNELS = ("kmeans", "sdpa_estimator")
+KERNELS = ("decode_attention", "kmeans", "rmsnorm", "sdpa_estimator")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -117,3 +120,17 @@ def load_library(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build([name])[name]))
     return _loaded[name]
+
+
+def call(fn, device: torch.device, *args) -> int:
+    """Call a kernel's C entry point for ``device``, passing that device's
+    current CUDA stream as the last argument (the entry launches there).
+    The stream handle is read raw and the device is made current only if it
+    is not already: building a ``torch.cuda.Stream`` and entering
+    ``torch.cuda.device`` cost more host time than the launch itself."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)

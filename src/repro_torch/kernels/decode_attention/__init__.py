@@ -1,0 +1,3 @@
+from repro_torch.kernels.decode_attention import ops, ref
+
+__all__ = ["ops", "ref"]

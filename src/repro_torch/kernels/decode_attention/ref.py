@@ -1,0 +1,36 @@
+"""Plain PyTorch version of GQA flash-decode attention.
+
+One query token per sequence against a KV cache, in float32: the
+reference's ``repro.kernels.decode_attention.ref.decode_attention``, per-
+sequence ``lengths`` included (columns at or past ``lengths[b]`` score
+−1e30). It is the oracle the CUDA kernel is held against and the route a
+CPU tensor takes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """q (B, H, dh), caches (B, Hkv, S, dh), lengths (B,) int or None (all
+    S valid) → (B, H, dh) float32. Head h attends with kv head h // G,
+    G = H / Hkv."""
+    b, h, dh = q.shape
+    _, hkv, s, _ = k_cache.shape
+    g = h // hkv
+    qf = q.float().reshape(b, hkv, g, dh)
+    scores = torch.einsum("bkgd,bksd->bkgs", qf, k_cache.float()) / math.sqrt(dh)
+    if lengths is not None:
+        valid = torch.arange(s, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+        scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgs,bksd->bkgd", p, v_cache.float()).reshape(b, h, dh)

@@ -77,20 +77,19 @@ def _launch(x: torch.Tensor, centers: torch.Tensor, want_min: bool):
         return out, mind
     fn = _kernel(x.dtype)
     strides = (*x.stride()[:2], *centers.stride()[:2])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(),
-            centers.data_ptr(),
-            out.data_ptr(),
-            None if mind is None else mind.data_ptr(),
-            b,
-            n,
-            centers.shape[1],
-            d,
-            *strides,
-            stream,
-        )
+    err = _build.call(
+        fn,
+        x.device,
+        x.data_ptr(),
+        centers.data_ptr(),
+        out.data_ptr(),
+        None if mind is None else mind.data_ptr(),
+        b,
+        n,
+        centers.shape[1],
+        d,
+        *strides,
+    )
     if err != 0:
         raise RuntimeError(f"kmeans launch failed: cudaError_t {err}")
     LAUNCHES += 1

@@ -97,9 +97,7 @@ def sdpa_estimate_batched(
     fn = _kernel()
     ptrs = (h_u.data_ptr(), h_o_a.data_ptr(), h_o_b.data_ptr(), out.data_ptr())
     strides = (*h_u.stride()[:2], *h_o_a.stride()[:2], *h_o_b.stride()[:2])
-    stream = torch.cuda.current_stream(h_u.device).cuda_stream
-    with torch.cuda.device(h_u.device):
-        err = fn(*ptrs, b, nu, no, d, db, *strides, 1.0 / math.sqrt(d), stream)
+    err = _build.call(fn, h_u.device, *ptrs, b, nu, no, d, db, *strides, 1.0 / math.sqrt(d))
     if err != 0:
         raise RuntimeError(f"sdpa_estimator launch failed: cudaError_t {err}")
     LAUNCHES += 1

@@ -13,8 +13,12 @@ import torch
 
 from repro_torch.checkpoint import ExtractorSpec, init_artifact
 from repro_torch.core import clustering
+from repro_torch.kernels.decode_attention import ops as dops
+from repro_torch.kernels.decode_attention import ref as dref
 from repro_torch.kernels.kmeans import ops as kops
 from repro_torch.kernels.kmeans import ref as kref
+from repro_torch.kernels.rmsnorm import ops as rops
+from repro_torch.kernels.rmsnorm import ref as rref
 from repro_torch.kernels.sdpa_estimator import ops, ref
 from repro_torch.launch.vfl_serve import ServingEngine
 
@@ -154,3 +158,87 @@ def test_step3_launches_the_kernel_for_every_assignment(cuda):
     )
     assert kops.LAUNCHES - before == 5 + 2  # Lloyd iterations, inertia, final
     assert labels.shape == (2, 256)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (4, 3072),  # the zoo's decode step
+        (128, 3072),  # its 32-token prompt forward at batch 4
+        (2048, 4096),  # the reference op's own example
+        (231, 130),  # odd d: rows start off the 16-byte grid
+        (3, 7, 96),
+        (5, 1),
+    ],
+)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain_version(shape, x_dtype, scale_dtype, cuda):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda, x_dtype)
+    scale = 1.0 + 0.1 * rng.standard_normal(shape[-1:]).astype(np.float32)
+    scale = torch.from_numpy(scale).to(cuda, scale_dtype)
+    before = rops.LAUNCHES
+    got = rops.rms_norm(x, scale)
+    torch.cuda.synchronize()
+    assert rops.LAUNCHES == before + 1
+    assert got.dtype == x_dtype and got.shape == x.shape
+    want = rref.rms_norm(x, scale)
+    # f32: a few ulps of O(1) values; bf16: one rounding step of the output
+    tol = 1e-5 if x_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_rmsnorm_kernel_takes_offset_rows_and_eps(cuda):
+    x = torch.randn(40 * 100 + 3, device=cuda)[3:].reshape(40, 100)  # 12-byte offset base
+    scale = torch.rand(100, device=cuda)
+    for eps in (1e-6, 0.5):
+        torch.testing.assert_close(
+            rops.rms_norm(x, scale, eps), rref.rms_norm(x, scale, eps), atol=1e-5, rtol=1e-5
+        )
+
+
+def _zoo_cache(b, s, hkv, dh, dtype, device, seed):
+    """A (B, S, Hkv, dh) cache viewed as (B, Hkv, S, dh), as the zoo passes it."""
+    rng = np.random.default_rng(seed)
+    c = torch.from_numpy(rng.standard_normal((b, s, hkv, dh)).astype(np.float32))
+    return c.to(device, dtype).transpose(1, 2)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (4, 24, 8, 48, 128),  # phi4-mini's decode step, 48-slot cache
+        (2, 8, 2, 128, 64),
+        (1, 16, 16, 300, 128),  # MHA, ragged last tile
+        (3, 12, 4, 1024, 32),
+        (2, 4, 1, 77, 80),  # G = 4 against one kv head, odd S and dh
+        (1, 16, 16, 4096, 256),  # gemma-like widest head, split across blocks
+        (2, 32, 2, 9000, 128),  # G = 16, split across blocks
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_decode_attention_kernel_matches_plain_version(shape, dtype, ragged, cuda):
+    b, h, hkv, s, dh = shape
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((b, h, dh)).astype(np.float32)).to(cuda)
+    k, v = (_zoo_cache(b, s, hkv, dh, dtype, cuda, seed) for seed in (2, 3))
+    lengths = None
+    if ragged:
+        lengths = torch.from_numpy(rng.integers(1, s + 1, b).astype(np.int32)).to(cuda)
+        lengths[0] = 1
+    before = dops.LAUNCHES
+    got = dops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert dops.LAUNCHES == before + 1
+    want = dref.decode_attention(q.double(), k.double(), v.double(), lengths).float()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+def test_decode_attention_kernel_takes_contiguous_caches(cuda):
+    q = torch.randn(2, 6, 64, device=cuda)
+    k, v = torch.randn(2, 2, 200, 64, device=cuda), torch.randn(2, 2, 200, 64, device=cuda)
+    torch.testing.assert_close(
+        dops.decode_attention(q, k, v), dref.decode_attention(q, k, v), atol=TOL, rtol=TOL
+    )
