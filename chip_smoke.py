@@ -11,7 +11,9 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    (one nvcc per kernel, in parallel), then hold each kernel against its
    plain PyTorch version on the card at its path's shapes, timing the
    kernel, the plain version, and one PyTorch library call computing the
-   same function;
+   same function (CUDA events over back-to-back calls), and the kernel's
+   device time from a CUDA graph of the same calls (``device_ms``; for
+   ``rmsnorm`` and ``decode_attention`` also the library call's);
 3. one-shot A (the training path): Alg. 1 on the port's own
    ``hard/overlap-32`` data (two parties, MLP 20→64→16, N_o = 32, 80 client
    and 40 server epochs): 3 comm times, 12288 bytes, k-means purity > 0.5
@@ -154,18 +156,23 @@ RMS_SHAPES = [
 # reference package's own f32 kernel tolerance, far inside the 2e-2 a bf16
 # output would need, and a masking error moves outputs by O(0.01) or more.
 DECODE_TOL = 2e-5
-# (B, H, Hkv, S, dh, ragged), all bf16 caches in the zoo's (B, S, Hkv, dh)
-# layout: phi4-mini's decode step (48-slot cache), the same with per-sequence
-# lengths as the path passes them, long context (1 GiB of K+V), gemma-like
-# 256-wide heads, an odd shape, and long context with per-sequence lengths.
+# (B, H, Hkv, S, dh, mask), all bf16 caches in the zoo's (B, S, Hkv, dh)
+# layout: phi4-mini's decode step (48-slot cache) with no mask, with
+# per-sequence lengths, and with stored positions in no order along the
+# slots (the path passes positions: its mask, here with valid slots that are
+# no prefix), long context (1 GiB of K+V), gemma-like 256-wide heads, an odd
+# shape, and long context with per-sequence lengths.
 DECODE_SHAPES = [
-    (4, 24, 8, 48, 128, False),
-    (4, 24, 8, 48, 128, True),
-    (8, 24, 8, 32768, 128, False),
-    (1, 16, 16, 4096, 256, False),
-    (2, 4, 1, 77, 80, False),
-    (8, 24, 8, 32768, 128, True),
+    (4, 24, 8, 48, 128, None),
+    (4, 24, 8, 48, 128, "lengths"),
+    (4, 24, 8, 48, 128, "positions"),
+    (8, 24, 8, 32768, 128, None),
+    (1, 16, 16, 4096, 256, None),
+    (2, 4, 1, 77, 80, None),
+    (8, 24, 8, 32768, 128, "lengths"),
 ]
+# the columns printed for the zoo kernels
+ZOO_TIMES = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms")
 ZOO_ARCH = "phi4-mini-3.8b"
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 32, 16
 ZOO_PARAMS = 3_836_021_760  # 32 x 100,669,440 per layer + 614,596,608 embedding + 3,072
@@ -212,6 +219,35 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean device time of ``fn()``: ``iters`` back-to-back calls captured
+    into one CUDA graph after ``warmup`` calls on a side stream, the graph
+    replayed between two events. At small shapes the event timer of
+    :func:`time_ms` reads the host's enqueue rate; a replay has no host in
+    the way. A call that cannot be captured fails the run."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:
+        fail(f"CUDA graph capture failed: {e}")
+    graph.replay()  # the first replay uploads the graph
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def sdpa_bound_ms(b: int, nu: int, no: int, d: int, db: int) -> tuple:
     """Least time for the work on an H100: the larger of compulsory bytes
     (each input read once, the output written once) over the memory rate and
@@ -253,10 +289,13 @@ def phase_sdpa(gen) -> dict:
             "ms": time_ms(lambda: ops.sdpa_estimate_batched(q, a, v)),
             "plain_ms": time_ms(lambda: ref.sdpa_estimate_batched(q, a, v)),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, a, v)),
+            "device_ms": device_ms(lambda: ops.sdpa_estimate_batched(q, a, v)),
         }
         row["bound_ms"], row["bound_by"] = sdpa_bound_ms(b, nu, no, d, db)
         rows.append(row)
-        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ("ms", "plain_ms", "library_ms"))
+        times = " | ".join(
+            f"{k} {row[k]:.4f} ms" for k in ("ms", "device_ms", "plain_ms", "library_ms")
+        )
         print(
             f"[kernel] sdpa_estimator B={b} N_u={nu} N_o={no} d={d} d_b={db}: "
             f"max|err| {err:.3e} | {times} | bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
@@ -302,10 +341,13 @@ def phase_kmeans(gen) -> dict:
             "ms": time_ms(lambda: kops.kmeans_assign_batched(x, m)),
             "plain_ms": time_ms(lambda: kref.kmeans_assign_batched(x, m)),
             "library_ms": time_ms(lambda: torch.cdist(x, m).argmin(-1)),
+            "device_ms": device_ms(lambda: kops.kmeans_assign_batched(x, m)),
         }
         row["bound_ms"], row["bound_by"] = kmeans_bound_ms(b, n, d, c)
         rows.append(row)
-        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ("ms", "plain_ms", "library_ms"))
+        times = " | ".join(
+            f"{k} {row[k]:.4f} ms" for k in ("ms", "device_ms", "plain_ms", "library_ms")
+        )
         print(
             f"[kernel] kmeans B={b} N={n} d={d} C={c}: agreement {agree:.6f} "
             f"({int(exempt.sum())} near-tie rows exempt) | min-dist max|err| {err:.3e} | "
@@ -335,13 +377,15 @@ def phase_rmsnorm(gen) -> dict:
             "ms": time_ms(lambda: rops.rms_norm(x, scale)),
             "plain_ms": time_ms(lambda: rref.rms_norm(x, scale)),
             "library_ms": time_ms(lambda: F.rms_norm(x, (d,), lib_scale, 1e-6)),
+            "device_ms": device_ms(lambda: rops.rms_norm(x, scale)),
+            "library_device_ms": device_ms(lambda: F.rms_norm(x, (d,), lib_scale, 1e-6)),
         }
         nbytes = 2 * rows * d * x.element_size() + 4 * d
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 4 * rows * d / H100_F32_FLOPS
         row["bound_ms"] = max(t_bytes, t_ops) * 1e3
         row["bound_by"] = "bytes" if t_bytes > t_ops else "operations"
         rows_out.append(row)
-        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ("ms", "plain_ms", "library_ms"))
+        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
         print(
             f"[kernel] rmsnorm rows={rows} d={d} {row['shape'][2]} (scale f32): max|err| "
             f"{err:.3e} | {times} | bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
@@ -349,52 +393,79 @@ def phase_rmsnorm(gen) -> dict:
     return rows_out[0]  # the decode step's norm: 65 launches a step
 
 
+def _decode_mask(mode, b: int, s: int, gen) -> tuple:
+    """(lengths, key_pos, q_pos, valid (B, S)) for one of DECODE_SHAPES'
+    masks. Positions: stored +1 in no order along the slots (0 = empty),
+    one slot per sequence holding the query's own position, and at least one
+    sequence whose valid slots are no prefix."""
+    lengths = key_pos = q_pos = None
+    valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    if mode == "lengths":
+        lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        valid = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+    elif mode == "positions":
+        key_pos = torch.randint(0, s + 1, (b, s), generator=gen, device="cuda", dtype=torch.int32)
+        q_pos = torch.randint(0, s, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        cur = torch.randint(0, s, (b,), generator=gen, device="cuda")
+        key_pos[torch.arange(b, device="cuda"), cur] = q_pos + 1
+        valid = (key_pos > 0) & (key_pos - 1 <= q_pos[:, None])
+        prefix = torch.arange(s, device="cuda")[None, :] < valid.sum(-1, keepdim=True)
+        check(bool((valid != prefix).any(-1).any()), "the position mask drew only prefixes")
+    return lengths, key_pos, q_pos, valid
+
+
 def phase_decode_attention(gen) -> dict:
     """The decode-attention kernel vs its plain version and
     ``F.scaled_dot_product_attention(enable_gqa=True)``, on caches in the
     zoo's (B, S, Hkv, dh) layout viewed as (B, Hkv, S, dh)."""
     rows_out = []
-    for b, h, hkv, s, dh, ragged in DECODE_SHAPES:
+    for b, h, hkv, s, dh, mode in DECODE_SHAPES:
         q = torch.randn(b, h, dh, generator=gen, device="cuda")
         kc, vc = (
             torch.randn(b, s, hkv, dh, generator=gen, device="cuda").bfloat16().transpose(1, 2)
             for _ in range(2)
         )
-        lengths = None
-        if ragged:
-            lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
-        got = dops.decode_attention(q, kc, vc, lengths)
-        want = dref.decode_attention(q, kc, vc, lengths)
+        lengths, key_pos, q_pos, valid = _decode_mask(mode, b, s, gen)
+
+        def kernel():
+            return dops.decode_attention(q, kc, vc, lengths, key_pos=key_pos, q_pos=q_pos)
+
+        got = kernel()
+        want = dref.decode_attention(q, kc, vc, lengths, key_pos, q_pos)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         check(bool(torch.isfinite(got).all()), f"non-finite decode attention at {(b, h, s)}")
         check(err <= DECODE_TOL, f"decode attention max|err| {err} > {DECODE_TOL} at {(b, h, s)}")
         q4 = q.bfloat16()[:, :, None, :]
-        mask = None
-        if ragged:
-            mask = (torch.arange(s, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-        keys = int(lengths.sum()) if ragged else b * s  # the cache rows this run reads
+        mask = None if mode is None else valid[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True)
+
+        keys = int(valid.sum())  # the cache rows this run's output depends on
         row = {
-            "shape": [b, h, hkv, s, dh] + (["ragged"] if ragged else []),
+            "shape": [b, h, hkv, s, dh] + ([mode] if mode else []),
             "max_abs_err": err,
-            "ms": time_ms(lambda: dops.decode_attention(q, kc, vc, lengths)),
-            "plain_ms": time_ms(lambda: dref.decode_attention(q, kc, vc, lengths)),
-            "library_ms": time_ms(
-                lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True)
-            ),
+            "ms": time_ms(kernel),
+            "plain_ms": time_ms(lambda: dref.decode_attention(q, kc, vc, lengths, key_pos, q_pos)),
+            "library_ms": time_ms(library),
+            "device_ms": device_ms(kernel),
+            "library_device_ms": device_ms(library),
         }
-        nbytes = 2 * keys * hkv * dh * 2 + 2 * b * h * dh * 4 + (4 * b if ragged else 0)
+        mask_bytes = {None: 0, "lengths": 4 * b, "positions": 4 * b * s + 4 * b}[mode]
+        nbytes = 2 * keys * hkv * dh * 2 + 2 * b * h * dh * 4 + mask_bytes
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 4 * h * dh * keys / H100_F32_FLOPS
         row["bound_ms"] = max(t_bytes, t_ops) * 1e3
         row["bound_by"] = "bytes" if t_bytes > t_ops else "operations"
         rows_out.append(row)
-        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ("ms", "plain_ms", "library_ms"))
+        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
+        what = {None: "", "lengths": " ragged lengths", "positions": " non-prefix positions"}
         print(
             f"[kernel] decode_attention B={b} H={h} Hkv={hkv} S={s} dh={dh} bf16 cache"
-            f"{' ragged lengths' if ragged else ''}: max|err| {err:.3e} | {times} | "
+            f"{what[mode]}: max|err| {err:.3e} | {times} | "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
         )
-    return rows_out[0]  # the decode step's launch: 32 a step
+    return rows_out[2]  # the decode step's launch (32 a step) with the path's mask
 
 
 def phase_one_shot_a(line: str) -> int:
@@ -750,8 +821,8 @@ def main() -> int:
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         out["launches"] = count
         out.update({k: row[k] for k in keys})
-        if "agreement" in row:
-            out["agreement"] = row["agreement"]
+        extra = ("device_ms", "library_device_ms", "agreement")
+        out.update({k: row[k] for k in extra if k in row})
         return out
 
     kernels = [

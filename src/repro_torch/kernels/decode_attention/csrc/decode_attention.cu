@@ -1,8 +1,11 @@
 // GQA flash-decode attention for Hopper (sm_90a), float32 arithmetic:
 //
-//   out[b, h] = softmax(q[b, h] · K[b, h / G]ᵀ / sqrt(dh), over keys < len[b]) · V[b, h / G]
+//   out[b, h] = softmax(q[b, h] · K[b, h / G]ᵀ / sqrt(dh), over valid keys) · V[b, h / G]
 //   q (B, H, dh) f32; K, V (B, Hkv, S, dh) f32 or bf16, any batch / head /
-//   seq strides; len (B,) int32 or all S -> out (B, H, dh) f32; G = H / Hkv
+//   seq strides; len (B,) int32 or all S; kpos (B, S) and qpos (B,) int32
+//   or none -> out (B, H, dh) f32; G = H / Hkv
+//   key l of sequence b is valid when l < len[b] and, with positions,
+//   kpos[b, l] > 0 and kpos[b, l] - 1 <= qpos[b]
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/decode_attention/kernel.py::_decode_kernel (launched by
@@ -17,6 +20,17 @@
 // sequence's own length bounds its loop. Keys at or past len[b] are never
 // read: in the reference they score -1e30 and weigh exp(-1e30 - m) = 0
 // exactly, so leaving them out changes no sum. len[b] must be >= 1.
+//
+// The position mask is the model zoo's decode mask
+// (src/repro/models/layers.py::attention_apply): each slot is held to its
+// own stored position (+1, 0 for an empty slot), so the valid slots need
+// not be a prefix. A key that fails it is read like any other and scores
+// -1e30, as in the reference. A tile, or a split's whole range, with no
+// valid key leaves m = -1e30 and weighs its keys exp(0) = 1; the first
+// valid key sets m to a real score, and alpha = exp(-1e30 - m) = 0 then
+// clears them from l and acc (and the merge weighs such a range
+// exp(-1e30 - m) = 0). Every row needs one valid key: the zoo's current
+// token's slot always is.
 //
 // Design. A 3-D grid of (splits, Hkv, B) blocks of 128 threads. The TPU
 // kernel's sequential cache axis is the loop inside a block; when B * Hkv
@@ -110,7 +124,8 @@ __device__ __forceinline__ void stage_tile(char* tile, const T* src, long long r
 template <typename T, int GT>
 __global__ void __launch_bounds__(NT) decode_attention_kernel(
     const float* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ lengths, float* __restrict__ out, float* __restrict__ part_acc,
+    const int* __restrict__ lengths, const int* __restrict__ kpos, const int* __restrict__ qpos,
+    float* __restrict__ out, float* __restrict__ part_acc,
     float* __restrict__ part_ml, int h, int hkv, int s, int dh, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, int tiles_per_split,
     float scale) {
@@ -131,6 +146,7 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
   const int g_n = h / hkv;
   const long long head0 = b * h + (long long)kvh * g_n;  // first query head of the group
   const int len = lengths ? min(lengths[b], s) : s;
+  const int q_at = kpos ? qpos[b] : 0;  // the query's position
   const int k_begin = split * tiles_per_split * BS;
   const int k_end = min(len, k_begin + tiles_per_split * BS);
   const T* const kb = k + b * k_sb + kvh * k_sh;
@@ -156,6 +172,9 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
     cp_async_commit();
     stage_tile(vs, vb, v_ss, k0, nk, nch, pitch);
     cp_async_commit();
+    // this thread's key's stored position, read while the tiles are in flight
+    const int kp = (kpos && key < nk) ? kpos[b * s + k0 + key] : 1;
+    const bool valid = kp > 0 && kp - 1 <= q_at;
     cp_async_wait<1>();
     __syncthreads();  // the K tile is in
 
@@ -192,7 +211,7 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
     if (key < nk && half == 0) {
 #pragma unroll
       for (int g = 0; g < GT; ++g)
-        if (g < g_n) ps[g * P_PITCH + key] = sc[g];
+        if (g < g_n) ps[g * P_PITCH + key] = valid ? sc[g] : NEG;
     }
     __syncthreads();  // the score tile is complete
 
@@ -295,7 +314,9 @@ __global__ void __launch_bounds__(NT) decode_attention_kernel(
   }
 }
 
-// Merge the ranges of one (b, head): rescale each to the common max.
+// Merge the ranges of one (b, head): rescale each to the common max. A range
+// whose keys were all masked parks m = -1e30 and weighs exp(-1e30 - m) = 0
+// against any range with a valid key.
 __global__ void __launch_bounds__(NT) decode_attention_combine(const float* __restrict__ part_acc,
                                                                const float* __restrict__ part_ml,
                                                                float* __restrict__ out, int h,
@@ -319,6 +340,8 @@ struct Args {
   const void* k;
   const void* v;
   const int* lengths;
+  const int* kpos;
+  const int* qpos;
   float* out;
   float* part_acc;
   float* part_ml;
@@ -341,9 +364,9 @@ cudaError_t launch(const Args& a, int optin, cudaStream_t stream) {
   const int per_split = (tiles + a.splits - 1) / a.splits;
   const dim3 grid(a.splits, a.hkv, a.b);
   decode_attention_kernel<T, GT><<<grid, NT, smem, stream>>>(
-      a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.lengths, a.out,
-      a.splits > 1 ? a.part_acc : nullptr, a.part_ml, a.h, a.hkv, a.s, a.dh, a.k_sb, a.k_sh,
-      a.k_ss, a.v_sb, a.v_sh, a.v_ss, per_split, a.scale);
+      a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.lengths, a.kpos, a.qpos,
+      a.out, a.splits > 1 ? a.part_acc : nullptr, a.part_ml, a.h, a.hkv, a.s, a.dh, a.k_sb,
+      a.k_sh, a.k_ss, a.v_sb, a.v_sh, a.v_ss, per_split, a.scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return e;
   decode_attention_combine<<<dim3(a.h, a.b), NT, 0, stream>>>(a.part_acc, a.part_ml, a.out, a.h,
@@ -359,7 +382,8 @@ int run(const Args& a, void* stream) {
                        a.v_sb % E == 0 && a.v_sh % E == 0 && a.v_ss % E == 0;
   if (a.b < 1 || a.b > 65535 || a.hkv < 1 || a.hkv > 65535 || a.h % a.hkv != 0 ||
       a.h / a.hkv > MAX_G || a.s < 1 || a.dh < 1 || a.dh > MAX_DH || a.dh % E != 0 ||
-      !aligned || a.splits < 1 || (a.splits > 1 && (!a.part_acc || !a.part_ml)))
+      !aligned || a.splits < 1 || (a.splits > 1 && (!a.part_acc || !a.part_ml)) ||
+      (a.kpos == nullptr) != (a.qpos == nullptr))
     return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -381,17 +405,19 @@ int run(const Args& a, void* stream) {
 // q is (B, H, dh) f32 contiguous, out (B, H, dh) f32 contiguous; the caches
 // are (B, Hkv, S, dh) with dh contiguous and batch / head / seq strides in
 // elements (multiples of 16 bytes, 16-byte aligned bases). lengths is (B,)
-// int32 or null (all S valid). With splits > 1, part_acc (B·H·splits·dh)
+// int32 or null (all S valid); kpos (B, S) and qpos (B,) int32 contiguous,
+// both or neither (no position mask). With splits > 1, part_acc (B·H·splits·dh)
 // and part_ml (B·H·splits·2) f32 are the merge's scratch. Returns the
 // launches' cudaError_t; launches on `stream` and does not synchronize.
 #define DECODE_ATTENTION_ENTRY(NAME, T)                                                        \
   extern "C" int NAME(const float* q, const void* k, const void* v, const int* lengths,       \
-                      float* out, float* part_acc, float* part_ml, int b, int h, int hkv,     \
+                      const int* kpos, const int* qpos, float* out, float* part_acc,          \
+                      float* part_ml, int b, int h, int hkv,                                  \
                       int s, int dh, long long k_sb, long long k_sh, long long k_ss,          \
                       long long v_sb, long long v_sh, long long v_ss, int splits, float scale, \
                       void* stream) {                                                         \
-    const Args a{q,    k,    v,    lengths, out,  part_acc, part_ml, b,      h,    hkv, s,    \
-                 dh,   k_sb, k_sh, k_ss,    v_sb, v_sh,     v_ss,    splits, scale};          \
+    const Args a{q,    k,    v,    lengths, kpos, qpos, out,  part_acc, part_ml, b,      h,     \
+                 hkv,  s,    dh,   k_sb,    k_sh, k_ss, v_sb, v_sh,     v_ss,    splits, scale}; \
     return run<T>(a, stream);                                                                 \
   }
 

@@ -17,8 +17,13 @@ dimension is contiguous: the model zoo passes its (B, S, Hkv, dh) cache as
 head width must be a multiple of 16 bytes (8 bf16 or 4 f32 values) and at
 most 256, the strides multiples of 16 bytes, and G = H / Hkv at most 16.
 ``lengths`` (B,) counts each sequence's valid keys, at least 1; ``None``
-means all S. ``LAUNCHES`` counts calls that launched the kernel (a call
-that splits a long cache across blocks also runs the small merge kernel).
+means all S. ``key_pos`` (B, S) and ``q_pos`` (B,), given together, mask
+each slot by its stored position as the reference's decode does: slot l is
+valid when ``key_pos[b, l] > 0`` and ``key_pos[b, l] - 1 <= q_pos[b]``
+(positions stored +1, 0 for an empty slot). A key must pass every mask
+given, and each sequence must keep at least one key. ``LAUNCHES`` counts
+calls that launched the kernel (a call that splits a long cache across
+blocks also runs the small merge kernel).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ def _kernel(dtype: torch.dtype):
     name = "decode_attention_bf16" if dtype == torch.bfloat16 else "decode_attention_f32"
     if name not in _fns:
         fn = getattr(_build.load_library("decode_attention"), name)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
         fn.argtypes += [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -60,7 +65,7 @@ def num_splits(batch: int, kv_heads: int, seq: int, sms: int) -> int:
     return max(1, min(want, tiles // 8))
 
 
-def _check(q, k_cache, v_cache, lengths) -> None:
+def _check(q, k_cache, v_cache, lengths, key_pos, q_pos) -> None:
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not torch.is_tensor(t):
             raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
@@ -87,9 +92,19 @@ def _check(q, k_cache, v_cache, lengths) -> None:
             raise ValueError(f"lengths must be a ({b},) tensor")
         if lengths.is_floating_point() or lengths.device != q.device:
             raise ValueError(f"lengths must be integer and on {q.device}")
+    if (key_pos is None) != (q_pos is None):
+        raise ValueError("key_pos and q_pos come together: give both or neither")
+    if key_pos is not None:
+        for name, t, shape in (("key_pos", key_pos, (b, s)), ("q_pos", q_pos, (b,))):
+            if not torch.is_tensor(t) or t.shape != shape:
+                raise ValueError(f"{name} must be a {shape} tensor")
+            if t.is_floating_point() or t.is_complex() or t.dtype == torch.bool:
+                raise ValueError(f"{name} must be integer, got {t.dtype}")
+            if t.device != q.device:
+                raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _launch(q, k_cache, v_cache, lengths) -> torch.Tensor:
+def _launch(q, k_cache, v_cache, lengths, key_pos, q_pos) -> torch.Tensor:
     global LAUNCHES
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_cache, v_cache)):
         raise NotImplementedError(
@@ -118,6 +133,9 @@ def _launch(q, k_cache, v_cache, lengths) -> torch.Tensor:
     qf = q.float().contiguous()
     if lengths is not None:
         lengths = lengths.to(torch.int32).contiguous()
+    if key_pos is not None:
+        key_pos = key_pos.to(torch.int32).contiguous()
+        q_pos = q_pos.to(torch.int32).contiguous()
     out = torch.empty((b, h, dh), device=q.device, dtype=torch.float32)
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     if dev not in _sms:  # a property query per call costs more than the launch
@@ -134,6 +152,8 @@ def _launch(q, k_cache, v_cache, lengths) -> torch.Tensor:
         k_cache.data_ptr(),
         v_cache.data_ptr(),
         None if lengths is None else lengths.data_ptr(),
+        None if key_pos is None else key_pos.data_ptr(),
+        None if q_pos is None else q_pos.data_ptr(),
         out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
@@ -158,14 +178,17 @@ def decode_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     lengths: Optional[torch.Tensor] = None,
+    key_pos: Optional[torch.Tensor] = None,
+    q_pos: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One query token per sequence against its KV cache.
 
-    q (B, H, dh), caches (B, Hkv, S, dh), lengths (B,) int or None →
-    (B, H, dh) float32; head h attends with kv head h // (H / Hkv)."""
-    _check(q, k_cache, v_cache, lengths)
+    q (B, H, dh), caches (B, Hkv, S, dh), lengths (B,) int or None, key_pos
+    (B, S) and q_pos (B,) int or both None → (B, H, dh) float32; head h
+    attends with kv head h // (H / Hkv)."""
+    _check(q, k_cache, v_cache, lengths, key_pos, q_pos)
     if q.device.type == "cpu":
-        return ref.decode_attention(q, k_cache, v_cache, lengths)
+        return ref.decode_attention(q, k_cache, v_cache, lengths, key_pos, q_pos)
     if q.device.type != "cuda":
         raise ValueError(f"no decode-attention route for device {q.device}")
-    return _launch(q, k_cache, v_cache, lengths)
+    return _launch(q, k_cache, v_cache, lengths, key_pos, q_pos)

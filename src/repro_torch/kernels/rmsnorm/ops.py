@@ -3,23 +3,29 @@
 Counterpart of ``repro.kernels.rmsnorm.ops.rms_norm``, with one difference:
 the reference op drops its ``eps`` (``del eps``) and always uses 1e-6; this
 one honours it, as ``repro.models.layers.rms_norm`` does. At the default
-1e-6 the two agree. Inputs are checked; then
+1e-6 the two agree.
 
-* a CPU tensor takes the plain version (:mod:`.ref`);
+* a CPU tensor is checked and takes the plain version (:mod:`.ref`);
 * a CUDA tensor launches the hand-written kernel (``csrc/rmsnorm.cu``) on
   the current stream, or raises. There is no fallback: a build failure, a
   refused launch or an unsupported input is an error.
 
 x and scale may each be float32 or bfloat16 (any pair, no cast); the
 output has x's dtype and shape. Leading dimensions are flattened into rows;
-a non-contiguous x is copied to contiguous rows first. The kernel has no
-backward yet: on the card, a call that autograd would differentiate raises.
-``LAUNCHES`` counts kernel launches.
+a non-contiguous x is copied to contiguous rows first. On the card the
+inputs are checked once per shape: the first call with a new (shape, dtype,
+device) pair of x and scale, eps and alignment checks them and builds a
+:class:`Plan` from :func:`launch_shape`; later calls look the plan up,
+allocate the output, read the current stream and call the C entry with five
+pointers (the C entry makes the plan's device current if it is not). The
+kernel has no backward yet: on the card, a call that autograd would
+differentiate raises. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -27,20 +33,93 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rmsnorm import ref
 
 LAUNCHES = 0
+MAX_THREADS = 1024
+MAX_BLOCKS = 1 << 16  # past this the blocks stride over the rows
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # absent from CPU builds
 _fns: dict = {}
+_plans: dict = {}
+
+
+class Plan(ctypes.Structure):
+    """One launch's shape and device, as the C entry reads it
+    (``RmsnormPlan``)."""
+
+    _fields_ = [
+        ("rows", ctypes.c_longlong),
+        ("d", ctypes.c_int),
+        ("eps", ctypes.c_float),
+        ("threads", ctypes.c_int),
+        ("rows_per_block", ctypes.c_int),
+        ("blocks", ctypes.c_int),
+        ("vpt", ctypes.c_int),
+        ("device", ctypes.c_int),
+    ]
 
 
 def _kernel(x_dtype: torch.dtype, scale_dtype: torch.dtype):
     name = f"rmsnorm_{_NAMES[x_dtype]}_{_NAMES[scale_dtype]}"
     if name not in _fns:
         fn = getattr(_build.load_library("rmsnorm"), name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
-        fn.argtypes += [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
+
+
+def _warps(n: int) -> int:
+    """n threads rounded up to whole warps."""
+    return 32 * -(-n // 32)
+
+
+def launch_shape(rows: int, d: int, itemsize: int, sms: int) -> Tuple[int, int, int]:
+    """(threads, rows_per_block, blocks) for ``rows`` rows of ``d``
+    elements of ``itemsize`` bytes on a card with ``sms`` SMs.
+
+    Few rows (at most two per SM): one block per row, one 16-byte vector a
+    thread up to 1024 threads, so 4 rows of 3072 bf16 run as 4 blocks of 384
+    threads. Many rows: two vectors a thread, and rows of at most 128
+    threads packed into blocks of 256, so a narrow row gets a warp. Blocks
+    stride over the rows past ``MAX_BLOCKS``."""
+    slots = -(-d // (16 // itemsize))  # 16-byte vectors in an aligned row
+    if rows <= 2 * sms:
+        return min(MAX_THREADS, _warps(slots)), 1, rows
+    per_row = min(MAX_THREADS, _warps(-(-slots // 2)))
+    rows_per_block = max(1, 256 // per_row)
+    return per_row * rows_per_block, rows_per_block, min(-(-rows // rows_per_block), MAX_BLOCKS)
+
+
+def vectors_per_thread(threads_per_row: int, d: int, itemsize: int, aligned: bool) -> int:
+    """16-byte vectors of x each thread holds in registers: the fewest of 1,
+    2 or 4 that cover a row's span, or 0 when even 4 do not (the kernel then
+    walks the row in a loop and reads it twice). ``aligned``: x starts on a
+    16-byte boundary. Unless it does and the vector's length divides d, a
+    row may start off the grid and span one vector more."""
+    v = 16 // itemsize
+    on_grid = aligned and d % v == 0
+    span = -(-(d + (0 if on_grid else v - 1)) // v)
+    for vpt in (1, 2, 4):
+        if threads_per_row * vpt >= span:
+            return vpt
+    return 0
+
+
+def _plan(x: torch.Tensor, scale: torch.Tensor, eps, aligned: bool):
+    """Check a new shape once; returns (entry point, plan, the plan's
+    address, device index, rows)."""
+    _check(x, scale)
+    for name, t in (("x", x), ("scale", scale)):
+        if t.dtype not in _NAMES:
+            raise TypeError(f"the RMSNorm kernel takes float32 or bfloat16 {name}, got {t.dtype}")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    threads, rows_per_block, blocks = launch_shape(rows, d, x.element_size(), sms)
+    vpt = vectors_per_thread(threads // rows_per_block, d, x.element_size(), aligned)
+    index = x.get_device()
+    plan = Plan(rows, d, eps, threads, rows_per_block, blocks, vpt, index)
+    return _kernel(x.dtype, scale.dtype), plan, ctypes.addressof(plan), index, rows
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -57,35 +136,38 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError(f"scale is on {scale.device}, x on {x.device}")
 
 
-def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d), scale (d,) → ``x · rsqrt(mean(x²) + eps) · scale`` per
+    row in x's dtype (f32 arithmetic, the mean over the true d)."""
     global LAUNCHES
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+    if not (getattr(x, "is_cuda", False) and torch.is_tensor(scale)):
+        _check(x, scale)
+        if x.device.type == "cpu":
+            return ref.rms_norm(x, scale, eps)
+        raise ValueError(f"no RMSNorm route for device {x.device}")
+    # the card: this is every call's host path, kept short (see the module doc)
+    if (x.requires_grad or scale.requires_grad) and torch.is_grad_enabled():
         raise NotImplementedError(
             "the RMSNorm kernel has no backward yet (ROADMAP Queue 1 #14): call it without grad"
         )
-    for name, t in (("x", x), ("scale", scale)):
-        if t.dtype not in _NAMES:
-            raise TypeError(f"the RMSNorm kernel takes float32 or bfloat16 {name}, got {t.dtype}")
-    d = x.shape[-1]
-    x, scale = x.contiguous(), scale.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if not scale.is_contiguous():
+        scale = scale.contiguous()
+    ptr = x.data_ptr()
+    aligned = ptr % 16 == 0
+    key = (
+        x.shape, x.dtype, x.get_device(), scale.shape, scale.dtype, scale.get_device(), eps, aligned
+    )
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = _plan(x, scale, eps, aligned)
+    fn, _, plan_ptr, index, rows = plan
     out = torch.empty_like(x)
-    rows = x.numel() // d
     if rows == 0:
         return out
-    fn = _kernel(x.dtype, scale.dtype)
-    err = _build.call(fn, x.device, x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d, eps)
+    err = fn(ptr, scale.data_ptr(), out.data_ptr(), plan_ptr, _raw_stream(index))
     if err != 0:
         raise RuntimeError(f"rmsnorm launch failed: cudaError_t {err}")
     LAUNCHES += 1
     return out
-
-
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x (..., d), scale (d,) → ``x · rsqrt(mean(x²) + eps) · scale`` per
-    row in x's dtype (f32 arithmetic, the mean over the true d)."""
-    _check(x, scale)
-    if x.device.type == "cpu":
-        return ref.rms_norm(x, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"no RMSNorm route for device {x.device}")
-    return _launch(x, scale, float(eps))

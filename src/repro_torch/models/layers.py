@@ -192,27 +192,26 @@ def _decode_attend(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor, cache: Dict
 ) -> torch.Tensor:
     """Write this token's k/v at slot ``index`` of the cache (in place), then
-    attend over the valid slots with the decode-attention kernel.
+    attend over the cache with the decode-attention kernel.
 
     The reference writes with ``dynamic_update_slice``, which clamps a slot
-    past the end to the last one; the clamp here keeps that behaviour. Its
-    mask ``kpos > 0 & pos_q - (kpos - 1) >= 0`` over the stored positions is
-    counted per sequence on the device (no host sync) and the kernel attends
-    that many leading slots. The two agree whenever the valid slots form a
-    prefix, i.e. the positions written along the slots never decrease, as
-    ``launch/serve`` writes them (slot i holds position i)."""
+    past the end to the last one; the clamp here keeps that behaviour. The
+    kernel applies the reference's mask ``kpos > 0 & pos_q - (kpos - 1) >= 0``
+    to each slot's own stored position, wherever along the slots it lies."""
     b, _, h, dh = q.shape
     idx = cache["index"]
     kpos = cache["pos"]
     slot = idx.clamp(max=cache["k"].shape[1] - 1).reshape(1).long()
-    pos1 = (positions + 1).to(kpos.dtype)  # (B, 1), stored +1
     cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-    kpos.index_copy_(1, slot, pos1)
-    lengths = ((kpos > 0) & (kpos <= pos1)).sum(-1, dtype=torch.int32)
+    kpos.index_copy_(1, slot, (positions + 1).to(kpos.dtype))  # (B, 1), stored +1
     idx.add_(1)
     out = decode_ops.decode_attention(
-        q.reshape(b, h, dh), cache["k"].transpose(1, 2), cache["v"].transpose(1, 2), lengths
+        q.reshape(b, h, dh),
+        cache["k"].transpose(1, 2),
+        cache["v"].transpose(1, 2),
+        key_pos=kpos,
+        q_pos=positions.reshape(b),
     )
     return out.reshape(b, 1, h, dh)
 

@@ -198,6 +198,51 @@ def test_rmsnorm_kernel_takes_offset_rows_and_eps(cuda):
         )
 
 
+def _rms_inputs(rows, d, x_dtype, scale_dtype, device, offset=0, seed=0):
+    rng = np.random.default_rng(seed)
+    flat = rng.standard_normal(rows * d + offset).astype(np.float32)
+    x = torch.from_numpy(flat).to(device, x_dtype)[offset:].view(rows, d)
+    scale = 1.0 + 0.1 * rng.standard_normal(d).astype(np.float32)
+    return x, torch.from_numpy(scale).to(device, scale_dtype)
+
+
+@pytest.mark.parametrize("d", [3072, 3071, 130, 16384, 40000])  # 40000: past registers, the loop
+@pytest.mark.parametrize("side", [0, 1])  # 2·SMs rows (a block per row), then one more (packed)
+@pytest.mark.parametrize("offset", [0, 3])  # rows off the 16-byte grid
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_at_the_launch_policy_boundaries(
+    d, side, offset, x_dtype, scale_dtype, cuda
+):
+    rows = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count + side
+    x, scale = _rms_inputs(rows, d, x_dtype, scale_dtype, cuda, offset)
+    before = rops.LAUNCHES
+    got = rops.rms_norm(x, scale)
+    torch.cuda.synchronize()
+    assert rops.LAUNCHES == before + 1 and got.dtype == x_dtype
+    tol = 1e-5 if x_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), rref.rms_norm(x, scale).float(), atol=tol, rtol=tol)
+
+
+def test_rmsnorm_kernel_replays_from_a_cuda_graph(cuda):
+    """Captured once, replayed on new values of the same input: the same
+    outputs as an eager call (the same kernel, so bit for bit)."""
+    x, scale = _rms_inputs(4, 3072, torch.bfloat16, torch.float32, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rops.rms_norm(x, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = rops.rms_norm(x, scale)
+    for seed in (1, 2):
+        x.copy_(_rms_inputs(4, 3072, torch.bfloat16, torch.float32, cuda, seed=seed)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, rops.rms_norm(x, scale))
+
+
 def _zoo_cache(b, s, hkv, dh, dtype, device, seed):
     """A (B, S, Hkv, dh) cache viewed as (B, Hkv, S, dh), as the zoo passes it."""
     rng = np.random.default_rng(seed)
@@ -234,6 +279,42 @@ def test_decode_attention_kernel_matches_plain_version(shape, dtype, ragged, cud
     assert dops.LAUNCHES == before + 1
     want = dref.decode_attention(q.double(), k.double(), v.double(), lengths).float()
     torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (4, 24, 8, 48, 128),  # phi4-mini's decode step
+        (1, 16, 16, 300, 128),
+        (2, 32, 2, 9000, 128),  # split across blocks
+        (8, 24, 8, 32768, 128),  # long context: the first ranges wholly masked
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_lengths", [False, True])
+def test_decode_attention_kernel_masks_each_slot_by_its_position(shape, dtype, with_lengths, cuda):
+    """Stored positions in no order along the slots; on long caches the
+    first half of the slots fails the mask, so whole tiles and whole split
+    ranges hold no valid key and the merge must weigh them 0."""
+    b, h, hkv, s, dh = shape
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((b, h, dh)).astype(np.float32)).to(cuda)
+    k, v = (_zoo_cache(b, s, hkv, dh, dtype, cuda, seed) for seed in (6, 7))
+    q_pos = rng.integers(s // 2, s, b)
+    key_pos = rng.integers(0, s + 1, (b, s))
+    if s >= 4096:  # empty, or later than the query: never valid
+        key_pos[:, : s // 2] = np.where(rng.random((b, s // 2)) < 0.5, 0, s + 1)
+    lengths = rng.integers(s // 2 + 1, s + 1, b) if with_lengths else np.full(b, s)
+    cur = rng.integers(s // 2, lengths)  # the current token's slot: valid
+    key_pos[np.arange(b), cur] = q_pos + 1
+    key_pos, q_pos = (torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (key_pos, q_pos))
+    lengths = torch.from_numpy(lengths.astype(np.int32)).to(cuda) if with_lengths else None
+    before = dops.LAUNCHES
+    got = dops.decode_attention(q, k, v, lengths, key_pos=key_pos, q_pos=q_pos)
+    torch.cuda.synchronize()
+    assert dops.LAUNCHES == before + 1
+    want = dref.decode_attention(q.double(), k.double(), v.double(), lengths, key_pos, q_pos)
+    torch.testing.assert_close(got, want.float(), atol=TOL, rtol=TOL)
 
 
 def test_decode_attention_kernel_takes_contiguous_caches(cuda):

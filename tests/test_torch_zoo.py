@@ -234,6 +234,28 @@ def test_decode_positions_behind_slots_match_reference(arch):
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_decode_positions_decreasing_along_slots_match_reference(arch):
+    """Position S - 1 - t at slot t: the valid slots are a suffix of the
+    written ones, never a prefix, so only a mask over each slot's own stored
+    position agrees with the reference."""
+    _, tcfg, jmodel, tmodel, jparams, tparams = _setup(arch)
+    toks = _tokens(tcfg, seed=8)
+    jcache = _f32_caches(jx_specs.zeros_like_spec(jmodel.cache_shapes(B, S)))
+    tcache = _f32_caches(specs.zeros_like_spec(tmodel.cache_shapes(B, S), "cpu"))
+    jdecode = jax.jit(jmodel.decode_fn)
+    for t in range(S):
+        batch = {"token": toks[:, t : t + 1], "pos": np.full((B, 1), S - 1 - t, np.int32)}
+        want, jcache = jdecode(jparams, jcache, jax.tree_util.tree_map(jnp.asarray, batch))
+        got, tcache = tmodel.decode_fn(
+            tparams, tcache, {k: torch.from_numpy(v) for k, v in batch.items()}
+        )
+        assert _rel(got, want) < RTOL, t
+    np.testing.assert_array_equal(
+        tcache["blocks"]["pos"].numpy(), np.asarray(jcache["blocks"]["pos"])
+    )
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_prefill_equals_sequential_decode(arch):
     """The port against itself: the blocked-scan prefill and the decode
     path (the decode-attention op over the cache) give the same logits."""
