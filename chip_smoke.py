@@ -12,8 +12,9 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    plain PyTorch version on the card at its path's shapes, timing the
    kernel, the plain version, and one PyTorch library call computing the
    same function (CUDA events over back-to-back calls), and the kernel's
-   device time from a CUDA graph of the same calls (``device_ms``; for
-   ``rmsnorm`` and ``decode_attention`` also the library call's);
+   device time from a CUDA graph of the same calls (``device_ms``, also
+   the library call's); and the Eq. 10 kernel under key-range plans other
+   than the wrapper's, each timed and held against a float64 Eq. 10;
 3. one-shot A (the training path): Alg. 1 on the port's own
    ``hard/overlap-32`` data (two parties, MLP 20→64→16, N_o = 32, 80 client
    and 40 server epochs): 3 comm times, 12288 bytes, k-means purity > 0.5
@@ -87,23 +88,32 @@ SEED = 0
 N_O = 2048  # overlap rows: the Eq. 10 keys/values
 CAPACITY = 1024
 H100_F32_FLOPS = 67e12  # FMA = 2 FLOP, outside the tensor cores (NVIDIA data sheet, SXM)
+H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores (NVIDIA data sheet, SXM)
 H100_BYTES_PER_S = 3.35e12
 # Kernel vs plain version: both sum in f32 in different orders (d-long dots,
 # N_o-long softmax sums); outputs are convex combinations of O(1) value rows,
 # so their rounding differences stay a few 1e-6. 1e-4 leaves margin and still
 # catches any indexing or masking error, which moves outputs by O(0.1).
 KERNEL_TOL = 1e-4
+# The Eq. 10 kernel against a float64 Eq. 10, as tests/test_torch_gpu.py holds it.
+F64_TOL = 2e-5
+# key ranges wanted in the plan phase (ops.split_plan)
+PLAN_RANGES = (1, 2, 4, 8, 16, 32, 64)
 # Logits: the same f32 layers on different batch compositions (cuDNN may
 # pick another convolution algorithm for a padded batch), relative to the
 # logits' scale.
 LOGIT_RTOL = 1e-4
 # (B, N_u, N_o, d, d_b): the partial-party launches of the serving path
-# (K = 2: B = 1; K = 4: B = 3), a ragged N_o, and odd sizes with d != d_b.
+# (K = 2: B = 1; K = 4: B = 3), a ragged N_o, odd sizes with d != d_b,
+# few-shot step ③'s query pool (one-shot B's private rows of a party: one
+# key range), and a last key range one key long.
 SHAPES = [
     (1, 1024, 2048, 128, 128),
     (3, 1024, 2048, 128, 128),
     (1, 1024, 2000, 128, 128),
     (2, 333, 517, 64, 128),
+    (1, 22976, 2048, 128, 128),
+    (1, 1024, 2049, 128, 128),
 ]
 # k-means assignment vs plain version: equal on every row whose best two
 # squared distances differ by more than NEAR_TIE (rows are unit vectors, so
@@ -249,13 +259,17 @@ def device_ms(fn, iters: int = 50, warmup: int = 3) -> float:
 
 
 def sdpa_bound_ms(b: int, nu: int, no: int, d: int, db: int) -> tuple:
-    """Least time for the work on an H100: the larger of compulsory bytes
-    (each input read once, the output written once) over the memory rate and
-    the two products' FLOPs over the f32 peak."""
+    """Least time for the kernel's work on an H100: the larger of compulsory
+    bytes (each input read once, the output written once) over the memory
+    rate and the arithmetic it does, the two products' FLOPs three times
+    over (3xTF32) at the dense TF32 rate. Also returns the same bound with
+    the products once at the f32 (non-tensor) rate, the bound of the earlier
+    f32-FMA design, so that older rows stay comparable."""
     nbytes = 4 * b * (nu * d + no * d + no * db + nu * db)
     flops = 2 * b * nu * no * (d + db)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 3 * flops / H100_TF32_FLOPS
+    fma_ms = max(t_bytes, flops / H100_F32_FLOPS) * 1e3
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations"), fma_ms
 
 
 def phase_device() -> str:
@@ -271,8 +285,11 @@ def phase_device() -> str:
 
 
 def phase_sdpa(gen) -> dict:
-    """Kernel vs plain version (and library call) at the path's shapes."""
+    """Kernel vs plain version (and library call) at the path's shapes, with
+    the launch plan the wrapper picked: one range at step ③'s shape, and
+    at least one block an SM at the serving shape."""
     rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, nu, no, d, db in SHAPES:
         q = torch.randn(b, nu, d, generator=gen, device="cuda")
         a = torch.randn(b, no, d, generator=gen, device="cuda")
@@ -283,24 +300,66 @@ def phase_sdpa(gen) -> dict:
         err = (got - want).abs().max().item()
         check(bool(torch.isfinite(got).all()), f"non-finite kernel output at {(b, nu, no, d, db)}")
         check(err <= KERNEL_TOL, f"kernel vs plain max|err| {err} > {KERNEL_TOL}")
+        plan = ops.device_plan(q, v)
+        if (b, nu, no) == (1, 1024, N_O):
+            check(plan.blocks >= sms, f"serving shape: {plan.blocks} blocks for {sms} SMs")
+        if nu == 22976:
+            check(plan.splits == 1, f"step ③' shape: {plan.splits} key ranges, not 1")
+
+        def library():
+            return F.scaled_dot_product_attention(q, a, v)
+
         row = {
             "shape": [b, nu, no, d, db],
             "max_abs_err": err,
+            "splits": plan.splits,
+            "blocks": plan.blocks,
             "ms": time_ms(lambda: ops.sdpa_estimate_batched(q, a, v)),
             "plain_ms": time_ms(lambda: ref.sdpa_estimate_batched(q, a, v)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, a, v)),
+            "library_ms": time_ms(library),
             "device_ms": device_ms(lambda: ops.sdpa_estimate_batched(q, a, v)),
+            "library_device_ms": device_ms(library),
         }
-        row["bound_ms"], row["bound_by"] = sdpa_bound_ms(b, nu, no, d, db)
+        row["bound_ms"], row["bound_by"], row["fma_bound_ms"] = sdpa_bound_ms(b, nu, no, d, db)
         rows.append(row)
-        times = " | ".join(
-            f"{k} {row[k]:.4f} ms" for k in ("ms", "device_ms", "plain_ms", "library_ms")
-        )
+        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
         print(
             f"[kernel] sdpa_estimator B={b} N_u={nu} N_o={no} d={d} d_b={db}: "
-            f"max|err| {err:.3e} | {times} | bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            f"{plan.splits} key range(s), {plan.blocks} blocks | max|err| {err:.3e} | {times} | "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, 3xTF32) | "
+            f"fma_bound {row['fma_bound_ms']:.4f} ms"
         )
     return rows[0]  # the K = 2 partial-query launch shape
+
+
+def _oracle64(q, a, v):
+    """Eq. 10 in float64 (the plain version casts its inputs to float32)."""
+    q, a, v = q.double(), a.double(), v.double()
+    return torch.softmax((q @ a.transpose(1, 2)) / q.shape[-1] ** 0.5, dim=-1) @ v
+
+
+def phase_sdpa_plans(gen) -> None:
+    """The kernel under other key-range plans than the wrapper's, at the
+    serving and step ③' shapes: device time and error against float64
+    (within the card tests' 2e-5) of 1 to 64 ranges, the wrapper's marked."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, nu, no, d, db in (SHAPES[0], SHAPES[4]):
+        q = torch.randn(b, nu, d, generator=gen, device="cuda")
+        a = torch.randn(b, no, d, generator=gen, device="cuda")
+        v = torch.randn(b, no, db, generator=gen, device="cuda")
+        want = _oracle64(q, a, v)
+        default = ops.device_plan(q, v)
+        plans = {ops.split_plan(b, nu, no, db, sms, w) for w in PLAN_RANGES} | {default}
+        for plan in sorted(plans):
+            err = (ops.launch(q, a, v, plan).double() - want).abs().max().item()
+            check(err <= F64_TOL, f"plan {plan} at {(b, nu, no, d, db)}: error {err} vs f64")
+            ms = device_ms(lambda: ops.launch(q, a, v, plan))
+            mark = " (the wrapper's plan)" if plan == default else ""
+            print(
+                f"[plan] sdpa_estimator B={b} N_u={nu} N_o={no} d={d} d_b={db}: "
+                f"{plan.splits} range(s) of {plan.per_tiles} tiles, {plan.blocks} blocks | "
+                f"device_ms {ms:.4f} | max|err| vs f64 {err:.3e}{mark}"
+            )
 
 
 def kmeans_bound_ms(b: int, n: int, d: int, c: int) -> tuple:
@@ -342,12 +401,11 @@ def phase_kmeans(gen) -> dict:
             "plain_ms": time_ms(lambda: kref.kmeans_assign_batched(x, m)),
             "library_ms": time_ms(lambda: torch.cdist(x, m).argmin(-1)),
             "device_ms": device_ms(lambda: kops.kmeans_assign_batched(x, m)),
+            "library_device_ms": device_ms(lambda: torch.cdist(x, m).argmin(-1)),
         }
         row["bound_ms"], row["bound_by"] = kmeans_bound_ms(b, n, d, c)
         rows.append(row)
-        times = " | ".join(
-            f"{k} {row[k]:.4f} ms" for k in ("ms", "device_ms", "plain_ms", "library_ms")
-        )
+        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
         print(
             f"[kernel] kmeans B={b} N={n} d={d} C={c}: agreement {agree:.6f} "
             f"({int(exempt.sum())} near-tie rows exempt) | min-dist max|err| {err:.3e} | "
@@ -751,6 +809,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sdpa_row = phase_sdpa(gen)
+    phase_sdpa_plans(gen)
     kmeans_row = phase_kmeans(gen)
     t0 = time.time()
     rms_row = phase_rmsnorm(gen)

@@ -7,6 +7,8 @@ reference package, so it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -44,6 +46,12 @@ def cuda():
     return torch.device("cuda")
 
 
+def _oracle64(q, a, b):
+    """Eq. 10 in float64 (the plain version casts its inputs to float32)."""
+    q, a, b = q.double(), a.double(), b.double()
+    return torch.softmax((q @ a.transpose(1, 2)) / math.sqrt(q.shape[-1]), dim=-1) @ b
+
+
 def _inputs(b, nu, no, d, db, device, seed=0):
     rng = np.random.default_rng(seed)
     return tuple(
@@ -60,8 +68,13 @@ def _inputs(b, nu, no, d, db, device, seed=0):
         (1, 1024, 2000, 128, 128),  # ragged N_o
         (2, 333, 517, 64, 128),  # odd sizes, d != d_b
         (1, 17, 1, 256, 256),  # one overlap row, widest d and d_b
-        (2, 5, 130, 3, 200),  # narrow d, two column slices of d_b
-        (1, 17, 100, 64, 64),  # one K/V tile: the second group has none
+        (2, 5, 130, 3, 200),  # narrow d, two column chunks of d_b
+        (1, 17, 100, 64, 64),  # four tiles of keys: one range
+        (1, 15, 7, 3, 1),  # N_o = 7 < one 8-key step, N_u = 15, d = 3, d_b = 1
+        (2, 15, 9, 200, 200),  # N_o = 9: a ragged 8-key step; d and d_b not multiples of 8
+        (3, 100, 9, 200, 256),  # d_b = 256: two column chunks
+        (1, 1024, 2049, 128, 128),  # 13 key ranges, the last tile one key long
+        (1, 22976, 2048, 128, 128),  # few-shot step ③': one range, 359 row blocks
     ],
 )
 def test_kernel_matches_plain_version(shape, cuda):
@@ -70,7 +83,7 @@ def test_kernel_matches_plain_version(shape, cuda):
     got = ops.sdpa_estimate_batched(q, a, b)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == before + 1
-    want = ref.sdpa_estimate_batched(q.double(), a.double(), b.double()).float()
+    want = _oracle64(q, a, b).float()
     torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
 
 
@@ -80,6 +93,69 @@ def test_kernel_takes_stride0_batch_views(cuda):
     got = ops.sdpa_estimate_batched(q.expand(3, -1, -1), a.expand(3, -1, -1), bb)
     want = ref.sdpa_estimate_batched(q.expand(3, -1, -1), a.expand(3, -1, -1), bb)
     torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+def test_kernel_takes_stride0_batch_views_on_the_split_route(cuda):
+    q, a, b = _inputs(1, 64, 2049, 32, 64, cuda, seed=2)
+    qe, ae, bb = q.expand(3, -1, -1), a.expand(3, -1, -1), torch.cat([b, 2 * b, -b])
+    assert ops.device_plan(qe, bb).splits > 1
+    got = ops.sdpa_estimate_batched(qe, ae, bb)
+    want = _oracle64(qe, ae, bb).float()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("want_ranges", [1, 2, 5, 10])
+def test_kernel_under_any_key_range_plan(want_ranges, cuda):
+    """Plans the wrapper would not pick here: 10 tiles of keys in up to 10
+    ranges, the last shorter than the rest (300 = 9·32 + 12 keys)."""
+    shape = (2, 70, 300, 24, 40)
+    q, a, b = _inputs(*shape, cuda, seed=3)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ops.split_plan(2, 70, 300, 40, sms, want_ranges)
+    assert plan.splits >= min(want_ranges, 10) and plan.ranges(300)[-1][1] == 300
+    before = ops.LAUNCHES
+    got = ops.launch(q, a, b, plan)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1  # one call, whether or not it merges
+    want = _oracle64(q, a, b).float()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("no", [2048, 8192])
+def test_kernel_holds_f32_accuracy_over_one_long_key_range(no, cuda):
+    """One block walks every key: 64 and 256 tiles, the plan the wrapper
+    picks when the query rows alone fill the card (few-shot step ③'). The
+    error must not grow with the range's length past TOL."""
+    shape = (1, 256, no, 128, 128)
+    q, a, b = _inputs(*shape, cuda, seed=4)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ops.split_plan(1, 256, no, 128, sms, want=1)
+    assert plan.splits == 1 and plan.per_tiles * ops.BN >= no
+    got = ops.launch(q, a, b, plan)
+    want = _oracle64(q, a, b).float()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+def test_kernel_replays_from_a_cuda_graph(cuda):
+    """The serving shape (16 key ranges and the merge) captured once and
+    replayed on new values of the same inputs: the eager call's outputs,
+    bit for bit."""
+    q, a, b = _inputs(1, 1024, 2048, 128, 128, cuda)
+    assert ops.device_plan(q, b).splits > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.sdpa_estimate_batched(q, a, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ops.sdpa_estimate_batched(q, a, b)
+    for seed in (1, 2):
+        for t, new in zip((q, a, b), _inputs(1, 1024, 2048, 128, 128, cuda, seed=seed)):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.sdpa_estimate_batched(q, a, b))
 
 
 def test_partial_party_query_is_one_launch(cuda):
