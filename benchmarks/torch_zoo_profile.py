@@ -17,8 +17,9 @@ times; one stream), the idle share ``1 - busy / untraced wall``, the number
 of kernels launched, and the busy time by kind of kernel, with each CUDA
 kernel's device time per launch. It then times the host side of single
 calls at the decode step's shapes: the enqueue time per call (host clock
-over 200 calls, no synchronize inside) of the two kernels' wrappers, their
-plain versions, the PyTorch library calls, and one bare elementwise op as a
+over 200 calls, no synchronize inside) of the two kernels' wrappers and
+their plain versions (decode attention masked by the cache's stored
+positions, as the step calls it), the PyTorch library calls, and one bare elementwise op as a
 floor. The last line is one JSON object with the same numbers and the
 card's ``nvidia-smi`` name and power limit. Needs a CUDA card; imports the
 port only, never JAX.
@@ -117,14 +118,19 @@ def main(argv=None) -> int:
     q = torch.randn(BATCH, cfg.num_heads, dh, generator=gen, device="cuda")
     k = cache["blocks"]["k"][0].transpose(1, 2)
     v = cache["blocks"]["v"][0].transpose(1, 2)
-    lengths = torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")
+    key_pos = cache["blocks"]["pos"][0]  # the path's mask: each slot's stored position
+    q_pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")
     q4 = q.bfloat16()[:, :, None, :]
     calls = {
         "rmsnorm kernel wrapper": lambda: rops.rms_norm(x, scale),
         "rmsnorm plain version": lambda: rref.rms_norm(x, scale),
         "F.rms_norm": lambda: F.rms_norm(x, (cfg.d_model,), scale_bf16, 1e-6),
-        "decode_attention kernel wrapper": lambda: dops.decode_attention(q, k, v, lengths),
-        "decode_attention plain version": lambda: dref.decode_attention(q, k, v, lengths),
+        "decode_attention kernel wrapper": lambda: dops.decode_attention(
+            q, k, v, key_pos=key_pos, q_pos=q_pos
+        ),
+        "decode_attention plain version": lambda: dref.decode_attention(
+            q, k, v, key_pos=key_pos, q_pos=q_pos
+        ),
         "F.scaled_dot_product_attention": lambda: F.scaled_dot_product_attention(
             q4, k, v, enable_gqa=True
         ),

@@ -13,8 +13,9 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    kernel, the plain version, and one PyTorch library call computing the
    same function (CUDA events over back-to-back calls), and the kernel's
    device time from a CUDA graph of the same calls (``device_ms``, also
-   the library call's); and the Eq. 10 kernel under key-range plans other
-   than the wrapper's, each timed and held against a float64 Eq. 10;
+   the library call's); and the Eq. 10 and decode-attention kernels under
+   key-range plans other than the wrapper's, each timed and held against a
+   float64 plain version;
 3. one-shot A (the training path): Alg. 1 on the port's own
    ``hard/overlap-32`` data (two parties, MLP 20→64→16, N_o = 32, 80 client
    and 40 server epochs): 3 comm times, 12288 bytes, k-means purity > 0.5
@@ -59,6 +60,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -171,7 +173,8 @@ DECODE_TOL = 2e-5
 # per-sequence lengths, and with stored positions in no order along the
 # slots (the path passes positions: its mask, here with valid slots that are
 # no prefix), long context (1 GiB of K+V), gemma-like 256-wide heads, an odd
-# shape, and long context with per-sequence lengths.
+# shape, long context with per-sequence lengths, and llama3-405b's head
+# layout (G = 16: 128 query heads over 8 kv heads; 67 MB of K+V).
 DECODE_SHAPES = [
     (4, 24, 8, 48, 128, None),
     (4, 24, 8, 48, 128, "lengths"),
@@ -180,7 +183,11 @@ DECODE_SHAPES = [
     (1, 16, 16, 4096, 256, None),
     (2, 4, 1, 77, 80, None),
     (8, 24, 8, 32768, 128, "lengths"),
+    (4, 128, 8, 4096, 128, None),
 ]
+# key ranges wanted in the decode plan phase (ops.split_plan), at the long
+# context shape (unmasked and with ragged lengths) and at the G = 16 shape
+DECODE_PLAN_RANGES = (1, 4, 8, 16, 32, 64, 128)
 # the columns printed for the zoo kernels
 ZOO_TIMES = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms")
 ZOO_ARCH = "phi4-mini-3.8b"
@@ -211,6 +218,22 @@ def gpu_line() -> str:
         timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _entry_names(mangled: list) -> dict:
+    """Each ptxas entry's name demangled, without its parameters, by the
+    CUDA toolkit's ``cu++filt -p`` (next to nvcc); the mangled names where
+    it is missing or fails."""
+    tool = Path(_build._nvcc()).with_name("cu++filt")
+    if not tool.exists():
+        return {m: m for m in mangled}
+    out = subprocess.run(
+        [str(tool), "-p"], input="\n".join(mangled), capture_output=True, text=True, timeout=60
+    )
+    names = out.stdout.splitlines()
+    if out.returncode != 0 or len(names) != len(mangled):
+        return {m: m for m in mangled}
+    return dict(zip(mangled, names))
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -501,6 +524,9 @@ def phase_decode_attention(gen) -> dict:
             return F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True)
 
         keys = int(valid.sum())  # the cache rows this run's output depends on
+        plan = dops.device_plan(q, kc, lengths)
+        if s <= 64:
+            check(plan.splits == 1, f"decode step shape: {plan.splits} key ranges, not 1")
         row = {
             "shape": [b, h, hkv, s, dh] + ([mode] if mode else []),
             "max_abs_err": err,
@@ -520,10 +546,68 @@ def phase_decode_attention(gen) -> dict:
         what = {None: "", "lengths": " ragged lengths", "positions": " non-prefix positions"}
         print(
             f"[kernel] decode_attention B={b} H={h} Hkv={hkv} S={s} dh={dh} bf16 cache"
-            f"{what[mode]}: max|err| {err:.3e} | {times} | "
+            f"{what[mode]}: {_plan_text(plan)} | max|err| {err:.3e} | {times} | "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
         )
     return rows_out[2]  # the decode step's launch (32 a step) with the path's mask
+
+
+def _plan_text(plan) -> str:
+    return (
+        f"{plan.splits} key range(s) of {plan.range_keys} keys, {plan.blocks} blocks of "
+        f"{plan.warps} warps, {dops.STAGES} stages"
+    )
+
+
+def decode_oracle64(q, kc, vc, lengths=None, key_pos=None, q_pos=None) -> torch.Tensor:
+    """Decode attention in float64, with the plain version's masks (the
+    plain version computes in float32 whatever its inputs)."""
+    b, h, dh = q.shape
+    _, hkv, s, _ = kc.shape
+    qd = q.double().reshape(b, hkv, h // hkv, dh)
+    scores = torch.einsum("bkgd,bksd->bkgs", qd, kc.double()) / dh**0.5
+    valid = torch.ones(b, s, dtype=torch.bool, device=q.device)
+    if lengths is not None:
+        valid &= torch.arange(s, device=q.device)[None, :] < lengths[:, None]
+    if key_pos is not None:
+        valid &= (key_pos > 0) & (key_pos - 1 <= q_pos[:, None])
+    p = torch.softmax(torch.where(valid[:, None, None, :], scores, -1e30), dim=-1)
+    return torch.einsum("bkgs,bksd->bkgd", p, vc.double()).reshape(b, h, dh)
+
+
+def phase_decode_plans(gen) -> None:
+    """The decode kernel under other plans than the wrapper's: device time
+    and error against a float64 plain version (within DECODE_TOL) of 1 to
+    128 key ranges and of the wrapper's plans with and without per-sequence
+    lengths, at the long context shape (unmasked and with ragged lengths)
+    and at llama3-405b's G = 16 shape (unmasked); the wrapper's plan for the
+    row's mask marked."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, modes in ((DECODE_SHAPES[3], (None, "lengths")), (DECODE_SHAPES[7], (None,))):
+        b, h, hkv, s, dh, _ = shape
+        q = torch.randn(b, h, dh, generator=gen, device="cuda")
+        kc, vc = (
+            torch.randn(b, s, hkv, dh, generator=gen, device="cuda").bfloat16().transpose(1, 2)
+            for _ in range(2)
+        )
+        full = torch.full((b,), s, dtype=torch.int32, device="cuda")  # any lengths: their plan
+        defaults = {None: dops.device_plan(q, kc), "lengths": dops.device_plan(q, kc, full)}
+        plans = {dops.split_plan(b, hkv, h // hkv, s, dh, 2, sms, w) for w in DECODE_PLAN_RANGES}
+        plans |= set(defaults.values())
+        for mode in modes:
+            lengths = _decode_mask(mode, b, s, gen)[0]
+            want64 = decode_oracle64(q, kc, vc, lengths)
+            for plan in sorted(plans):
+                got = dops.launch(q, kc, vc, lengths, None, None, plan)
+                err = (got.double() - want64).abs().max().item()
+                check(err <= DECODE_TOL, f"decode plan {plan}: error {err} vs f64")
+                ms = device_ms(lambda: dops.launch(q, kc, vc, lengths, None, None, plan))
+                mark = " (the wrapper's plan)" if plan == defaults[mode] else ""
+                print(
+                    f"[plan] decode_attention B={b} H={h} Hkv={hkv} S={s} dh={dh} bf16"
+                    f"{' ragged lengths' if mode else ''}: {_plan_text(plan)} | device_ms "
+                    f"{ms:.4f} | max|err| vs f64 {err:.3e}{mark}"
+                )
 
 
 def phase_one_shot_a(line: str) -> int:
@@ -802,10 +886,17 @@ def main() -> int:
     t_start = t0 = time.time()
     _build.build()
     print(f"[build] {', '.join(_build.KERNELS)} built in {time.time() - t0:.1f}s")
-    for name in _build.KERNELS:
-        for log_line in _build.build_log(name).splitlines():
-            if "registers" in log_line or "spill" in log_line:
-                print(f"[build] {name}: {log_line.strip()}")
+    logs = {name: _build.build_log(name).splitlines() for name in _build.KERNELS}
+    entries = _entry_names(
+        [ln.split("'")[1] for lines in logs.values() for ln in lines if "entry function" in ln]
+    )
+    for name, lines in logs.items():
+        entry = ""
+        for log_line in lines:
+            if "Compiling entry function" in log_line:
+                entry = entries[log_line.split("'")[1]]
+            elif "registers" in log_line or "spill" in log_line:
+                print(f"[build] {name}: {entry}: {log_line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sdpa_row = phase_sdpa(gen)
@@ -814,6 +905,7 @@ def main() -> int:
     t0 = time.time()
     rms_row = phase_rmsnorm(gen)
     decode_row = phase_decode_attention(gen)
+    phase_decode_plans(gen)
     zoo_kernels_s = time.time() - t0
 
     # ---- the training path: counters from 0, read right after

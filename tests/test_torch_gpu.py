@@ -8,21 +8,26 @@ reference package, so it also runs where JAX is not installed:
 """
 
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.checkpoint import ExtractorSpec, init_artifact
-from repro_torch.core import clustering
-from repro_torch.kernels.decode_attention import ops as dops
-from repro_torch.kernels.decode_attention import ref as dref
-from repro_torch.kernels.kmeans import ops as kops
-from repro_torch.kernels.kmeans import ref as kref
-from repro_torch.kernels.rmsnorm import ops as rops
-from repro_torch.kernels.rmsnorm import ref as rref
-from repro_torch.kernels.sdpa_estimator import ops, ref
-from repro_torch.launch.vfl_serve import ServingEngine
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
+from repro_torch.checkpoint import ExtractorSpec, init_artifact  # noqa: E402
+from repro_torch.core import clustering  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
+from repro_torch.kernels.kmeans import ops as kops  # noqa: E402
+from repro_torch.kernels.kmeans import ref as kref  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
+from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
+from repro_torch.launch.vfl_serve import ServingEngine  # noqa: E402
 
 # The kernel and the plain version both sum in f32, in different orders: a
 # few ulps on O(1) outputs. Held against a float64 plain version, 2e-5 is the
@@ -319,6 +324,9 @@ def test_rmsnorm_kernel_replays_from_a_cuda_graph(cuda):
         assert torch.equal(got, rops.rms_norm(x, scale))
 
 
+_decode64 = chip_smoke.decode_oracle64  # the plain version's masks, in float64
+
+
 def _zoo_cache(b, s, hkv, dh, dtype, device, seed):
     """A (B, S, Hkv, dh) cache viewed as (B, Hkv, S, dh), as the zoo passes it."""
     rng = np.random.default_rng(seed)
@@ -353,7 +361,7 @@ def test_decode_attention_kernel_matches_plain_version(shape, dtype, ragged, cud
     got = dops.decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
     assert dops.LAUNCHES == before + 1
-    want = dref.decode_attention(q.double(), k.double(), v.double(), lengths).float()
+    want = _decode64(q, k, v, lengths).float()
     torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
 
 
@@ -389,7 +397,7 @@ def test_decode_attention_kernel_masks_each_slot_by_its_position(shape, dtype, w
     got = dops.decode_attention(q, k, v, lengths, key_pos=key_pos, q_pos=q_pos)
     torch.cuda.synchronize()
     assert dops.LAUNCHES == before + 1
-    want = dref.decode_attention(q.double(), k.double(), v.double(), lengths, key_pos, q_pos)
+    want = _decode64(q, k, v, lengths, key_pos, q_pos)
     torch.testing.assert_close(got, want.float(), atol=TOL, rtol=TOL)
 
 
@@ -399,3 +407,116 @@ def test_decode_attention_kernel_takes_contiguous_caches(cuda):
     torch.testing.assert_close(
         dops.decode_attention(q, k, v), dref.decode_attention(q, k, v), atol=TOL, rtol=TOL
     )
+
+
+def _positions(b, s, rng, device, masked_half=False):
+    """Stored positions (+1, 0 empty) in no order along the slots, the
+    current token's slot valid; with ``masked_half`` the first half of the
+    slots is empty or later than the query."""
+    q_pos = rng.integers(s // 2, s, b)
+    key_pos = rng.integers(0, s + 1, (b, s))
+    if masked_half:
+        key_pos[:, : s // 2] = np.where(rng.random((b, s // 2)) < 0.5, 0, s + 1)
+    key_pos[np.arange(b), rng.integers(s // 2, s, b)] = q_pos + 1
+    return (torch.from_numpy(a.astype(np.int32)).to(device) for a in (key_pos, q_pos))
+
+
+@pytest.mark.parametrize("s", [1, 63, 65])
+@pytest.mark.parametrize("dh", [80, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_at_tile_edges(s, dh, dtype, cuda):
+    """One key, one key short of and one past four 16-key tiles; an 80-wide
+    head (10 bf16 or 20 f32 chunks of 16 bytes, not a power of two)."""
+    b, h, hkv = 3, 12, 4
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((b, h, dh)).astype(np.float32)).to(cuda)
+    k, v = (_zoo_cache(b, s, hkv, dh, dtype, cuda, seed) for seed in (9, 10))
+    key_pos, q_pos = _positions(b, s, rng, cuda)
+    for args in ((None, None, None), (None, key_pos, q_pos)):
+        got = dops.decode_attention(q, k, v, args[0], key_pos=args[1], q_pos=args[2])
+        want = _decode64(q, k, v, *args).float()
+        torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_g16_long_context_with_positions(dtype, cuda):
+    """llama3-405b's G = 16 over a 32768-slot cache, half of it masked."""
+    b, h, hkv, s, dh = 2, 32, 2, 32768, 128
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((b, h, dh)).astype(np.float32)).to(cuda)
+    k, v = (_zoo_cache(b, s, hkv, dh, dtype, cuda, seed) for seed in (12, 13))
+    key_pos, q_pos = _positions(b, s, rng, cuda, masked_half=True)
+    assert dops.device_plan(q, k).splits > 1
+    got = dops.decode_attention(q, k, v, key_pos=key_pos, q_pos=q_pos)
+    want = _decode64(q, k, v, None, key_pos, q_pos).float()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("with_positions", [False, True])
+def test_decode_attention_many_ranges_with_empty_ones(with_positions, cuda):
+    """64 key ranges of 128 keys; ragged lengths leave most ranges of the
+    short sequences past their length (never run, skipped by the merge)."""
+    b, h, hkv, s, dh = 4, 12, 4, 8192, 128
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy(rng.standard_normal((b, h, dh)).astype(np.float32)).to(cuda)
+    k, v = (_zoo_cache(b, s, hkv, dh, torch.bfloat16, cuda, seed) for seed in (15, 16))
+    lengths = torch.tensor([1, 129, 5000, s], dtype=torch.int32, device=cuda)
+    key_pos = q_pos = None
+    if with_positions:
+        key_pos, q_pos = _positions(b, s, rng, cuda)
+        key_pos[torch.arange(b, device=cuda), 0] = (q_pos + 1).int()  # slot 0 valid everywhere
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = dops.split_plan(b, hkv, h // hkv, s, dh, 2, sms, want=64)
+    assert plan.splits == 64 and plan.range_keys == 128
+    before = dops.LAUNCHES
+    got = dops.launch(q, k, v, lengths, key_pos, q_pos, plan)
+    torch.cuda.synchronize()
+    assert dops.LAUNCHES == before + 1  # one call, the merge included
+    want = _decode64(q, k, v, lengths, key_pos, q_pos).float()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+def test_decode_attention_plan_counts_with_the_built_registers(cuda):
+    """Loading the library reads every instantiation's registers, within
+    what the kernel's __launch_bounds__(128, 1) allows; the plan uses them."""
+    q = torch.zeros(1, 16, 128, device=cuda)
+    k = torch.zeros(1, 1, 4096, 128, device=cuda, dtype=torch.bfloat16)
+    plan = dops.device_plan(q, k)
+    assert sorted(dops._regs) == [(e, g) for e in (2, 4) for g in (1, 2, 3, 4, 8)]
+    assert all(0 < n <= 255 for n in dops._regs.values())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan == dops.launch_plan(1, 1, 16, 4096, 128, 2, sms, dops._regs[2, 8], False)
+
+
+@pytest.mark.parametrize("s", [48, 32768])
+def test_decode_attention_kernel_replays_from_a_cuda_graph(s, cuda):
+    """The zoo's decode step (one range) and a long cache (ranges and the
+    merge), with the path's position mask: captured once, replayed on new
+    values of the same inputs, the same outputs as an eager call."""
+    b, h, hkv, dh = 4, 24, 8, 128
+    rng = np.random.default_rng(17)
+
+    def inputs(seed):
+        r = np.random.default_rng(seed)
+        q = torch.from_numpy(r.standard_normal((b, h, dh)).astype(np.float32)).to(cuda)
+        k, v = (_zoo_cache(b, s, hkv, dh, torch.bfloat16, cuda, seed + i) for i in (1, 2))
+        return q, k, v
+
+    q, k, v = inputs(0)
+    key_pos, q_pos = _positions(b, s, rng, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dops.decode_attention(q, k, v, key_pos=key_pos, q_pos=q_pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = dops.decode_attention(q, k, v, key_pos=key_pos, q_pos=q_pos)
+    for seed in (10, 20):
+        for t, new in zip((q, k, v), inputs(seed)):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, dops.decode_attention(q, k, v, key_pos=key_pos, q_pos=q_pos))
+        want = _decode64(q, k, v, None, key_pos, q_pos).float()
+        torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)

@@ -275,16 +275,28 @@ def test_kernels_are_registered_for_the_build():
 
 
 @pytest.mark.parametrize(
-    "shape, sms, want",
+    "shape, sms, ragged, want",
     [
-        ((4, 8, 48), 132, 1),  # the zoo's decode step: one block per (b, kv head)
-        ((8, 8, 32768), 132, 5),  # long context at B = 8: ~2 blocks per SM
-        ((1, 16, 4096), 132, 8),  # capped at 8 tiles (512 keys) a range
-        ((2, 1, 77), 132, 1),
+        ((4, 24, 8, 48, 128), 132, False, 1),  # the zoo's decode step: one range, no merge kernel
+        ((8, 24, 8, 32768, 128), 132, False, 4),  # long context at B = 8: one full wave of blocks
+        ((8, 24, 8, 32768, 128), 132, True, 16),  # with lengths: four waves to balance them
+        ((1, 16, 16, 4096, 256), 132, False, 8),  # no range shorter than 512 keys
+        ((2, 4, 1, 77, 80), 132, False, 1),
     ],
 )
-def test_decode_attention_split_policy(shape, sms, want):
-    assert dec_ops.num_splits(*shape, sms) == want
+def test_decode_attention_split_policy(shape, sms, ragged, want):
+    """The launch plan's key ranges, and every key in one range and one warp."""
+    b, h, hkv, s, dh = shape
+    # 255 registers a thread: the most the kernel's __launch_bounds__(128, 1) allows
+    plan = dec_ops.launch_plan(b, hkv, h // hkv, s, dh, 2, sms, 255, ragged)
+    assert plan.splits == want
+    assert plan.blocks == b * hkv * dec_ops.head_blocks(h // hkv) * want
+    covered = np.zeros(s, np.int64)
+    for lo, hi in plan.ranges(s):
+        for warp in range(plan.warps):
+            for k0, k1 in plan.warp_tiles(lo, hi, warp):
+                covered[k0:k1] += 1
+    assert (covered == 1).all()
 
 
 def _row_counts(rows, rows_per_block, blocks):
