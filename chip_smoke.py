@@ -14,8 +14,9 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    same function (CUDA events over back-to-back calls), and the kernel's
    device time from a CUDA graph of the same calls (``device_ms``, also
    the library call's); and the Eq. 10 and decode-attention kernels under
-   key-range plans other than the wrapper's, each timed and held against a
-   float64 plain version;
+   key-range plans other than the wrapper's, and the k-means kernel on
+   both of its routes and under several centre-range plans, each timed and
+   held against a float64 plain version;
 3. one-shot A (the training path): Alg. 1 on the port's own
    ``hard/overlap-32`` data (two parties, MLP 20→64→16, N_o = 32, 80 client
    and 40 server epochs): 3 comm times, 12288 bytes, k-means purity > 0.5
@@ -126,8 +127,11 @@ NEAR_TIE = 1e-5
 MAX_EXEMPT = 1e-3
 KMEANS_MIN_TOL = 1e-5
 # (B, N, d, C): one-shot B's Lloyd and inertia launches (K·R = 2·4 entries)
-# and final launch (K = 2), the same for one-shot A, an odd shape, and
-# centres far beyond shared memory.
+# and final launch (K = 2), the same for one-shot A, an odd shape, centres
+# far beyond shared memory (the tile route), the CPU tests' shape (rows
+# that are not 16-byte aligned, the tile route with three centre ranges),
+# and the path's shape at 64 centres: with C = 37 below it, the two routes'
+# crossover seen from both sides.
 KMEANS_SHAPES = [
     (8, 2048, 128, 10),
     (2, 2048, 128, 10),
@@ -135,7 +139,14 @@ KMEANS_SHAPES = [
     (2, 32, 16, 2),
     (3, 1000, 77, 37),
     (1, 4096, 1024, 1000),
+    (2, 300, 513, 130),
+    (8, 2048, 128, 64),
 ]
+# centre ranges wanted on the tile route in the k-means plan phase (ops.tile_plan)
+KMEANS_PLAN_RANGES = (1, 4, 16)
+# The routes' crossover, timed at one (B, N, d), the path's Lloyd launch,
+# in both element types: C from 16 to 64 centres (one tile of the tile route).
+KMEANS_CROSSOVER = ((8, 2048, 128), (16, 24, 32, 40, 48, 56, 64))
 # One-shot B: the paper's §5.1 CIFAR-10 layout at the extractor's full
 # width, on the repository's synthetic CIFAR-like generator.
 IMAGE_B = scenarios.ScenarioSpec(
@@ -385,12 +396,50 @@ def phase_sdpa_plans(gen) -> None:
             )
 
 
-def kmeans_bound_ms(b: int, n: int, d: int, c: int) -> tuple:
-    """Least time on an H100: x, the centres and the labels each moved
-    once, against the distance products' FLOPs at the f32 peak."""
+def kmeans_bound_ms(b: int, n: int, d: int, c: int, route: str) -> tuple:
+    """Least time on an H100 for the arithmetic the route runs: x, the
+    centres and the labels each moved once, against the distance products'
+    FLOPs at the f32 FMA peak (the rows route) or three times over at the
+    dense TF32 rate (the tile route's 3xTF32). Also returns the f32 FMA
+    bound of either, as the sdpa_estimator rows print it."""
     t_bytes = 4 * b * (n * d + c * d + n) / H100_BYTES_PER_S
-    t_ops = 2 * b * n * c * d / H100_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    flops = 2 * b * n * c * d
+    fma = flops / H100_F32_FLOPS
+    t_ops = fma if route == "rows" else 3 * flops / H100_TF32_FLOPS
+    bound_by = "bytes" if t_bytes > t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, bound_by, max(t_bytes, fma) * 1e3
+
+
+def _kmeans_plan_text(plan) -> str:
+    if plan.route == "rows":
+        return (
+            f"rows route: {plan.lanes} lane(s) a row, {plan.group_rows} row(s) a lane group, "
+            f"{plan.rows_per_block} rows a block, {plan.blocks} blocks"
+        )
+    return (
+        f"tile route: {plan.splits} centre range(s) of {plan.per_tiles} tile(s) of "
+        f"{kops.BN}, {plan.rows_per_block} rows a block, {plan.blocks} blocks"
+    )
+
+
+def kmeans_oracle_check(x, m, got, mind, what: str) -> float:
+    """Hold assignments and minimum distances against a float64 oracle of
+    the same expansion: equal outside NEAR_TIE near-ties (at most MAX_EXEMPT
+    of the rows differ), minima within KMEANS_MIN_TOL. Returns the error."""
+    xd, md = x.double(), m.double()
+    dist = (xd * xd).sum(-1, keepdim=True) - 2 * xd @ md.transpose(1, 2)
+    dist = dist + (md * md).sum(-1)[:, None]
+    c = m.shape[1]
+    top = dist.topk(min(2, c), dim=-1, largest=False).values
+    gap = top[..., 1] - top[..., 0] if c > 1 else torch.full_like(top[..., 0], 4.0)
+    want = dist.argmin(-1).int()
+    exempt = gap <= NEAR_TIE
+    wrong = int(((got != want) & ~exempt).sum())
+    check(wrong == 0, f"{what}: {wrong} rows differ from the f64 oracle outside near-ties")
+    check(float((got != want).float().mean()) <= MAX_EXEMPT, f"{what}: too many near-tie rows")
+    err = (mind.double() - top[..., 0]).abs().max().item()
+    check(err <= KMEANS_MIN_TOL, f"{what}: min distance error {err} vs f64 > {KMEANS_MIN_TOL}")
+    return err
 
 
 def _unit_rows(gen, *shape):
@@ -400,8 +449,12 @@ def _unit_rows(gen, *shape):
 
 def phase_kmeans(gen) -> dict:
     """The k-means kernel vs its plain version (and ``torch.cdist`` +
-    argmin) at the training path's shapes and two stress shapes."""
+    argmin) at the training path's shapes (the rows route, one launch each),
+    an odd shape, centres far beyond shared memory (the tile route, at least
+    a block an SM), the CPU tests' shape and the path's shape at 64 centres,
+    each with the wrapper's plan."""
     rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, n, d, c in KMEANS_SHAPES:
         x, m = _unit_rows(gen, b, n, d), _unit_rows(gen, b, c, d)
         got, mind = kops.kmeans_assign_min_batched(x, m)
@@ -416,6 +469,11 @@ def phase_kmeans(gen) -> dict:
         check(wrong == 0, f"kmeans kernel disagrees on {wrong} rows at {(b, n, d, c)}")
         check(1.0 - agree <= MAX_EXEMPT, f"{1 - agree:.2%} near-tie rows differ at {(b, n, d, c)}")
         check(err <= KMEANS_MIN_TOL, f"kmeans min distance max|err| {err} > {KMEANS_MIN_TOL}")
+        plan = kops.device_plan(x, m)
+        if (n, d, c) == (2048, 128, 10) or n == 32:
+            check(plan.route == "rows", f"path shape {(b, n, d, c)}: {plan.route} route, not rows")
+        if (b, n, d, c) == (1, 4096, 1024, 1000):
+            check(plan.route == "tiles" and plan.blocks >= sms, f"large C·d: {plan}")
         row = {
             "shape": [b, n, d, c],
             "max_abs_err": err,
@@ -426,15 +484,62 @@ def phase_kmeans(gen) -> dict:
             "device_ms": device_ms(lambda: kops.kmeans_assign_batched(x, m)),
             "library_device_ms": device_ms(lambda: torch.cdist(x, m).argmin(-1)),
         }
-        row["bound_ms"], row["bound_by"] = kmeans_bound_ms(b, n, d, c)
+        bound = kmeans_bound_ms(b, n, d, c, plan.route)
+        row["bound_ms"], row["bound_by"], row["fma_bound_ms"] = bound
         rows.append(row)
         times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
+        what = "3xTF32" if plan.route == "tiles" else "f32 FMA"
         print(
-            f"[kernel] kmeans B={b} N={n} d={d} C={c}: agreement {agree:.6f} "
-            f"({int(exempt.sum())} near-tie rows exempt) | min-dist max|err| {err:.3e} | "
-            f"{times} | bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            f"[kernel] kmeans B={b} N={n} d={d} C={c}: {_kmeans_plan_text(plan)} | agreement "
+            f"{agree:.6f} ({int(exempt.sum())} near-tie rows exempt) | min-dist max|err| "
+            f"{err:.3e} | {times} | bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {what}) "
+            f"| fma_bound {row['fma_bound_ms']:.4f} ms"
         )
     return rows[0]  # the Lloyd launch: 25 of every run's 27
+
+
+def _kmeans_plan_rows(x, m, plans) -> None:
+    """Each plan launched on (x, m): held against the float64 oracle,
+    timed, printed as a ``[plan] kmeans`` row, the wrapper's plan marked."""
+    b, n, d = x.shape
+    c = m.shape[1]
+    default = kops.device_plan(x, m)
+    for plan in sorted(set(plans) | {default}):
+        got, mind = kops.launch(x, m, plan)
+        torch.cuda.synchronize()
+        err = kmeans_oracle_check(x, m, got, mind, f"kmeans plan {plan} at {(b, n, d, c)}")
+        ms = device_ms(lambda: kops.launch(x, m, plan, False))
+        mark = " (the wrapper's plan)" if plan == default else ""
+        print(
+            f"[plan] kmeans {str(x.dtype).removeprefix('torch.')} B={b} N={n} d={d} C={c}: "
+            f"{_kmeans_plan_text(plan)} | device_ms {ms:.4f} | max|err| vs f64 {err:.3e}{mark}"
+        )
+
+
+def phase_kmeans_plans(gen) -> None:
+    """The k-means kernel under other plans than the wrapper's, at every
+    KMEANS_SHAPES row: the rows route where it can run, with one and two
+    rows a lane group, and the tile route with 1, 4 and 16 centre ranges
+    wanted (fewer where C has fewer tiles). Then the crossover rows
+    (KMEANS_CROSSOVER): the wrapper's rows-route plan and the one-range tile
+    plan at each C, in float32 and bfloat16. Each row: device time and
+    error against a float64 oracle (KMEANS_MIN_TOL and the near-tie rule),
+    the wrapper's plan marked. The crossover rows set the plan's
+    ``ops.ROWS_MAX_C``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, n, d, c in KMEANS_SHAPES:
+        x, m = _unit_rows(gen, b, n, d), _unit_rows(gen, b, c, d)
+        plans = {kops.tile_plan(b, n, c, sms, w) for w in KMEANS_PLAN_RANGES}
+        if kops.rows_ok(c, d, 4):
+            plans |= {kops.rows_plan(b, n, d, 4, sms, rows) for rows in (1, 2)}
+        _kmeans_plan_rows(x, m, plans)
+    (b, n, d), centres = KMEANS_CROSSOVER
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in centres:
+            x = _unit_rows(gen, b, n, d).to(dtype)
+            m = _unit_rows(gen, b, c, d).to(dtype)
+            rows = kops.rows_plan(b, n, d, x.element_size(), sms)
+            _kmeans_plan_rows(x, m, [rows, kops.tile_plan(b, n, c, sms, 1)])
 
 
 def phase_rmsnorm(gen) -> dict:
@@ -902,6 +1007,7 @@ def main() -> int:
     sdpa_row = phase_sdpa(gen)
     phase_sdpa_plans(gen)
     kmeans_row = phase_kmeans(gen)
+    phase_kmeans_plans(gen)
     t0 = time.time()
     rms_row = phase_rmsnorm(gen)
     decode_row = phase_decode_attention(gen)

@@ -189,26 +189,11 @@ def _unit(shape, device, seed, dtype=torch.float32):
     return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
 
 
-@pytest.mark.parametrize(
-    "shape",
-    [
-        (8, 2048, 128, 10),  # step ③'s Lloyd and inertia launches (K·R = 2·4)
-        (2, 2048, 128, 10),  # its final assignment (K = 2)
-        (8, 32, 16, 2),  # the tabular path's launches
-        (2, 32, 16, 2),
-        (3, 1000, 77, 37),  # odd sizes: ragged row, centre and column tiles
-        (1, 4096, 1024, 1000),  # centres far beyond shared memory
-        (1, 1, 1, 1),
-    ],
-)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kmeans_kernel_matches_plain_version(shape, dtype, cuda):
-    b, n, d, c = shape
-    x, m = _unit((b, n, d), cuda, 0, dtype), _unit((b, c, d), cuda, 1, dtype)
-    before = kops.LAUNCHES
-    got, mind = kops.kmeans_assign_min_batched(x, m)
-    torch.cuda.synchronize()
-    assert kops.LAUNCHES == before + 1
+def _assert_kmeans_matches_f64(x, m, got, mind):
+    """Assignments equal to a float64 oracle of the same expansion outside
+    NEAR_TIE near-ties (at most 0.1 % of the rows differ); minimum distances
+    within 1e-5."""
+    c = m.shape[1]
     xd, md = x.double(), m.double()  # a float64 oracle of the same expansion
     dots = xd @ md.transpose(1, 2)
     dist = (xd * xd).sum(-1, keepdim=True) - 2 * dots + (md * md).sum(-1)[:, None]
@@ -219,6 +204,123 @@ def test_kmeans_kernel_matches_plain_version(shape, dtype, cuda):
     assert torch.equal(got[~exempt], want[~exempt])
     assert float((got != want).float().mean()) <= 1e-3
     torch.testing.assert_close(mind.double(), top[..., 0], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [
+        (8, 2048, 128, 10),  # step ③'s Lloyd and inertia launches (K·R = 2·4)
+        (2, 2048, 128, 10),  # its final assignment (K = 2)
+        (8, 32, 16, 2),  # the tabular path's launches
+        (2, 32, 16, 2),
+        (3, 1000, 77, 37),  # odd sizes: ragged row, centre and column tiles
+        (1, 4096, 1024, 1000),  # centres far beyond shared memory
+        (1, 1, 1, 1),
+        (2, 300, 513, 130),  # rows off the 16-byte grid, three centre ranges
+        (8, 2048, 128, 64),  # the path's shape at 64 centres: the tile route
+        (2, 100, 32, 17),  # C = 17: one past a 16-centre step
+        (2, 50, 3, 5),  # d = 3: one ragged vector a row
+        (1, 22976, 128, 10),  # a few-shot pool: more rows-route blocks than the card holds at once
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_kernel_matches_plain_version(shape, dtype, cuda):
+    b, n, d, c = shape
+    x, m = _unit((b, n, d), cuda, 0, dtype), _unit((b, c, d), cuda, 1, dtype)
+    before = kops.LAUNCHES
+    got, mind = kops.kmeans_assign_min_batched(x, m)
+    torch.cuda.synchronize()
+    assert kops.LAUNCHES == before + 1
+    _assert_kmeans_matches_f64(x, m, got, mind)
+
+
+def _both_routes(b, n, d, c, elem, device):
+    """The rows-route plan and tile-route plans of 1 and 4 centre ranges."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = [kops.tile_plan(b, n, c, sms, w) for w in (1, 4)]
+    return [kops.rows_plan(b, n, d, elem, sms)] + tiles
+
+
+@pytest.mark.parametrize("shape", [(3, 1000, 77, 100), (2, 500, 128, 130), (4, 300, 16, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_kernel_on_either_route_by_an_explicit_plan(shape, dtype, cuda):
+    """Shapes where both routes run (more centres than ops.ROWS_MAX_C: the
+    wrapper would take the tile route): each route, forced by its plan,
+    holds the f64 oracle, and the tile route under one and several centre
+    ranges."""
+    b, n, d, c = shape
+    x, m = _unit((b, n, d), cuda, 4, dtype), _unit((b, c, d), cuda, 5, dtype)
+    plans = _both_routes(b, n, d, c, x.element_size(), cuda)
+    assert [p.route for p in plans] == ["rows", "tiles", "tiles"]
+    assert plans[2].splits > 1
+    for plan in plans:
+        got, mind = kops.launch(x, m, plan)
+        torch.cuda.synchronize()
+        _assert_kmeans_matches_f64(x, m, got, mind)
+
+
+@pytest.mark.parametrize("route", ["rows", "tiles"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_kernel_reads_rows_off_the_16_byte_grid(route, dtype, cuda):
+    """A view whose base is 4 (or 2) bytes off the 16-byte grid, with
+    aligned strides: the kernel reads it element by element, in place."""
+    b, n, d, c = 4, 300, 128, 20
+    flat = _unit((1, 1, b * n * d + 1), cuda, 6, dtype).flatten()
+    x = flat[1:].view(b, n, d)
+    m = _unit((b, c, d), cuda, 7, dtype)
+    assert x.data_ptr() % 16 != 0
+    rows, tiles, _ = _both_routes(b, n, d, c, x.element_size(), cuda)
+    got, mind = kops.launch(x, m, rows if route == "rows" else tiles)
+    torch.cuda.synchronize()
+    _assert_kmeans_matches_f64(x, m, got, mind)
+
+
+def test_kmeans_tile_route_breaks_a_tie_across_centre_ranges_to_the_lower_index(cuda):
+    """Centre 5 and an exact copy at 133, two ranges later (ranges of one
+    64-centre tile, the copy at the same place in its tile): the ranges are
+    merged in no fixed block order, and the lower index wins every tie."""
+    b, n, d, c = 1, 4096, 256, 200
+    x = _unit((b, n, d), cuda, 8)
+    m = _unit((b, c, d), cuda, 9)
+    m[:, 133] = m[:, 5]
+    x[:, ::7] = m[:, 5:6]  # these rows sit on both centres
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = kops.tile_plan(b, n, c, sms, 4)
+    assert plan.splits == 4 and plan.ranges(c)[2] == (128, 192)
+    got, mind = kops.launch(x, m, plan)
+    torch.cuda.synchronize()
+    assert not bool((got == 133).any())
+    assert bool((got[:, ::7] == 5).all())
+    _assert_kmeans_matches_f64(x, m, got, mind)
+
+
+@pytest.mark.parametrize(
+    "shape,route", [((8, 2048, 128, 10), "rows"), ((1, 2048, 256, 300), "tiles")]
+)
+def test_kmeans_kernel_replays_from_a_cuda_graph(shape, route, cuda):
+    """Captured once, replayed on new values of the same inputs: the same
+    outputs as an eager call (the same kernels, so bit for bit), on each
+    route (the tile route's with its merge)."""
+    b, n, d, c = shape
+    x, m = _unit((b, n, d), cuda, 10), _unit((b, c, d), cuda, 11)
+    plan = kops.device_plan(x, m)
+    assert plan.route == route and (route == "rows" or plan.splits > 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kops.kmeans_assign_min_batched(x, m)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, mind = kops.kmeans_assign_min_batched(x, m)
+    for seed in (12, 13):
+        x.copy_(_unit((b, n, d), cuda, seed))
+        m.copy_(_unit((b, c, d), cuda, seed + 10))
+        graph.replay()
+        torch.cuda.synchronize()
+        want, want_min = kops.kmeans_assign_min_batched(x, m)
+        assert torch.equal(got, want) and torch.equal(mind, want_min)
+        _assert_kmeans_matches_f64(x, m, got, mind)
 
 
 def test_kmeans_kernel_takes_stride0_batch_views_and_ties(cuda):
