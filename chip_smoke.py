@@ -27,16 +27,25 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    stage, 128-wide representations), a linear 256 → 10 head, N_o = 2048:
    3 comm times, 6291456 bytes, purity > 0.5, accuracy > 0.2; each step
    timed;
-5. serving (K = 2): the model B trained, ragged requests through
+5. few-shot A (Alg. 2, the training path's second round): ``hard/overlap-32``
+   at its budgets (80 client and 40 server epochs): 5 comm times, 177408
+   bytes, AUC > 0.6; step ③' (one ``sdpa_estimator`` launch a party, at
+   (1, 1184, 32, 16, 16)) recomputed on the CPU's plain route from the same
+   reps and heads: estimates within KERNEL_TOL, gate decisions equal
+   outside near-ties (counted);
+6. few-shot B: Alg. 2 on one-shot B's configuration, ③' at (1, 22976, 2048,
+   128, 128), ``client_epochs`` cut to FEW_B_CLIENT_EPOCHS: 5 comm times,
+   32099840 bytes, accuracy > 0.2, the same ③' check; each step timed;
+7. serving (K = 2): the model B trained, ragged requests through
    ``serve_traffic`` at capacity 1024, held against the unbatched
    ``predict_logits``;
-6. partial-party queries (K = 2 over B's 2048 refreshed overlap reps: one
+8. partial-party queries (K = 2 over B's 2048 refreshed overlap reps: one
    B = 1 launch each; K = 4 (16, 16, 3) patches with seeded random weights:
    one B = 3 launch each), held against the plain route on the same inputs;
-7. zoo, small: reduced phi4-mini (2 layers, G = 2, f32 activations) served
+9. zoo, small: reduced phi4-mini (2 layers, G = 2, f32 activations) served
    on the card and on the CPU's plain route with the same weights: equal
    greedy tokens, logits within 1e-4;
-8. zoo, full width (the third path): ``phi4-mini-3.8b`` at its own config
+10. zoo, full width (the third path): ``phi4-mini-3.8b`` at its own config
    (3,836,021,760 f32 parameters, seeded on the card). ``launch/serve``'s
    prefill + greedy decode at batch 4, prompt 32, 16 new tokens, once to
    warm up and once timed (p50/p99 per token step, tokens/s, peak memory);
@@ -47,7 +56,7 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    forward.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
-5-6, then 8) and read just after. Output ends with a ``{"kernels": [...]}`` line,
+5-6, then 7-8, then 10) and read just after. Output ends with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -72,7 +81,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import scenarios  # noqa: E402
 from repro_torch.checkpoint import ExtractorSpec, init_artifact  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.protocol import KMEANS_RESTARTS, ProtocolConfig, run_one_shot  # noqa: E402
+from repro_torch.core.protocol import (  # noqa: E402
+    KMEANS_RESTARTS,
+    ProtocolConfig,
+    run_few_shot,
+    run_one_shot,
+)
+from repro_torch.core.server import VFLServer  # noqa: E402
+from repro_torch.engine import dispatch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
@@ -109,7 +125,8 @@ LOGIT_RTOL = 1e-4
 # (B, N_u, N_o, d, d_b): the partial-party launches of the serving path
 # (K = 2: B = 1; K = 4: B = 3), a ragged N_o, odd sizes with d != d_b,
 # few-shot step ③'s query pool (one-shot B's private rows of a party: one
-# key range), and a last key range one key long.
+# key range), a last key range one key long, and few-shot A's step ③'
+# (hard/overlap-32: d = 16, below one 32-float TMA box; one key tile).
 SHAPES = [
     (1, 1024, 2048, 128, 128),
     (3, 1024, 2048, 128, 128),
@@ -117,6 +134,7 @@ SHAPES = [
     (2, 333, 517, 64, 128),
     (1, 22976, 2048, 128, 128),
     (1, 1024, 2049, 128, 128),
+    (1, 1184, 32, 16, 16),
 ]
 # k-means assignment vs plain version: equal on every row whose best two
 # squared distances differ by more than NEAR_TIE (rows are unit vectors, so
@@ -160,6 +178,15 @@ IMAGE_B = scenarios.ScenarioSpec(
     blocks_per_stage=2,
 )
 B_CLIENT_EPOCHS = 20
+# Few-shot B: the same configuration with client_epochs cut from 20 to 1 so
+# that the phase stays near a minute: step ⑤' then runs 782 SSL steps a
+# party (N_o + N_u = 25024 labeled rows), step ④ 64. Server epochs uncut (50).
+FEW_B_CLIENT_EPOCHS = 1
+# Few-shot step ③' gate decisions, card vs the CPU's plain route: equal
+# except on rows where a head's top confidence lies within NEAR_GATE of t,
+# or its top two class probabilities within NEAR_GATE of each other (the
+# estimates differ by up to KERNEL_TOL, and so do the heads' inputs).
+NEAR_GATE = 1e-4
 # RMSNorm kernel vs plain version: f32 outputs within 1e-5 (both sum d
 # squares in f32, in different orders); bf16 outputs within one rounding
 # step, |err| <= 2e-2 + 2e-2·|want| (2^-8 relative: 0.03 at |y| in [4, 8)).
@@ -319,9 +346,9 @@ def phase_device() -> str:
 
 
 def phase_sdpa(gen) -> dict:
-    """Kernel vs plain version (and library call) at the path's shapes, with
-    the launch plan the wrapper picked: one range at step ③'s shape, and
-    at least one block an SM at the serving shape."""
+    """Kernel vs plain version (and library call) at the path's shapes, and
+    vs float64, with the launch plan the wrapper picked: one range at both
+    step ③' shapes, and at least one block an SM at the serving shape."""
     rows = []
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b, nu, no, d, db in SHAPES:
@@ -332,12 +359,14 @@ def phase_sdpa(gen) -> dict:
         want = ref.sdpa_estimate_batched(q, a, v)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        err64 = (got.double() - _oracle64(q, a, v)).abs().max().item()
         check(bool(torch.isfinite(got).all()), f"non-finite kernel output at {(b, nu, no, d, db)}")
         check(err <= KERNEL_TOL, f"kernel vs plain max|err| {err} > {KERNEL_TOL}")
+        check(err64 <= F64_TOL, f"kernel vs f64 max|err| {err64} > {F64_TOL}")
         plan = ops.device_plan(q, v)
         if (b, nu, no) == (1, 1024, N_O):
             check(plan.blocks >= sms, f"serving shape: {plan.blocks} blocks for {sms} SMs")
-        if nu == 22976:
+        if nu in (22976, 1184):
             check(plan.splits == 1, f"step ③' shape: {plan.splits} key ranges, not 1")
 
         def library():
@@ -359,9 +388,10 @@ def phase_sdpa(gen) -> dict:
         times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
         print(
             f"[kernel] sdpa_estimator B={b} N_u={nu} N_o={no} d={d} d_b={db}: "
-            f"{plan.splits} key range(s), {plan.blocks} blocks | max|err| {err:.3e} | {times} | "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, 3xTF32) | "
-            f"fma_bound {row['fma_bound_ms']:.4f} ms"
+            f"{plan.splits} key range(s), {plan.blocks} blocks | max|err| {err:.3e} (vs f64 "
+            f"{err64:.3e}) | {times} | "
+            f"bound {row['bound_ms']:.4g} ms ({row['bound_by']}, 3xTF32) | "
+            f"fma_bound {row['fma_bound_ms']:.4g} ms"
         )
     return rows[0]  # the K = 2 partial-query launch shape
 
@@ -771,6 +801,120 @@ def phase_one_shot_b(line: str):
     return res.to_artifact(IMAGE_B.name, split), cfg.kmeans_iters + 2
 
 
+def check_step3p(res, what: str) -> str:
+    """Step ③' of a few-shot run recomputed on the CPU's plain route from
+    the run's own reps and heads: each Eq. 10 estimate within KERNEL_TOL of
+    the kernel's, and the gate decisions equal except on near-ties (a
+    head's top confidence within NEAR_GATE of t, or its top two class
+    probabilities within NEAR_GATE). Returns the printed summary."""
+    rec = res.diagnostics["fewshot_step3p"]
+    t = res.cfg.fewshot_threshold
+    h_u = [h.cpu() for h in rec["h_u"]]
+    h_o = [h.cpu() for h in rec["h_o"]]
+    cpu = VFLServer(
+        num_classes=res.server.num_classes,
+        classifier=copy.deepcopy(rec["joint"]).cpu(),
+        aux_classifiers=[copy.deepcopy(m).cpu() for m in res.server.aux_classifiers],
+    )
+    err = prob_err = 0.0
+    near = differ = 0
+    for k, (h, p_card) in enumerate(zip(h_u, rec["probs"])):
+        ests: list = []
+        p_plain = dispatch.fewshot_probs(cpu, k, h, h_o, t, ests)
+        for e_plain, e_card in zip(ests, rec["estimates"][k]):
+            check(e_card.is_cuda, f"{what}: step ③' ran off the card")
+            err = max(err, (e_card.cpu() - e_plain).abs().max().item())
+        parts = list(ests)
+        parts.insert(k, h)
+        near_k = torch.zeros(h.shape[0], dtype=torch.bool)
+        with torch.no_grad():
+            for logits in (cpu.aux_classifiers[k](h), cpu.classifier(torch.cat(parts, -1))):
+                top = torch.softmax(logits, -1).topk(2, dim=-1).values
+                near_k |= (top[:, 0] - t).abs() <= NEAR_GATE
+                near_k |= top[:, 0] - top[:, 1] <= NEAR_GATE
+        gate_card, gate_plain = p_card.cpu() > 0, p_plain > 0
+        wrong = gate_card != gate_plain
+        check(not bool((wrong & ~near_k).any()), f"{what}: party {k} gate differs off near-ties")
+        both = gate_card & gate_plain
+        if bool(both.any()):
+            prob_err = max(prob_err, (p_card.cpu() - p_plain)[both].abs().max().item())
+        near += int(near_k.sum())
+        differ += int(wrong.sum())
+    check(err <= KERNEL_TOL, f"{what}: step ③' estimates vs plain max|err| {err} > {KERNEL_TOL}")
+    check(prob_err <= KERNEL_TOL, f"{what}: p̂ vs plain max|err| {prob_err} > {KERNEL_TOL}")
+    return (
+        f"③' vs plain route: estimates max|err| {err:.3e}, p̂ max|err| {prob_err:.3e}, gate "
+        f"decisions differ on {differ} rows ({near} near-tie rows exempt)"
+    )
+
+
+def _rates(rates) -> list:
+    return [round(r, 4) for r in rates]
+
+
+def _few_shot_line(res, what: str, spec_name: str, line: str) -> dict:
+    d = res.diagnostics
+    ms = d["step_ms"]
+    steps5p = sum(d["fewshot_ssl_steps"])
+    shapes = [
+        (1, h.shape[0], o.shape[0], o.shape[1], o.shape[1])
+        for h, o in zip(d["fewshot_step3p"]["h_u"], d["fewshot_step3p"]["h_o"])
+    ]
+    step3p = check_step3p(res, what)
+    print(
+        f"[few-shot {what}] {spec_name}: {res.metric_name} {res.metric:.4f} (its one-shot pass "
+        f"{d['one_shot_metric']:.4f}) | {res.ledger.total_bytes()} bytes in "
+        f"{res.ledger.comm_times()} comm times | gate rate {_rates(d['fewshot_gate_rate'])} take "
+        f"rate {_rates(d['fewshot_take_rate'])} | ③' shapes {shapes} | {step3p} | step ms: "
+        f"{' '.join(f'{k} {v:.1f}' for k, v in ms.items())} | ⑤' {steps5p} steps, "
+        f"{ms['5p_local_ssl'] / steps5p:.3f} ms/step | total {sum(ms.values()):.1f} ms | {line}"
+    )
+    return {"step_ms": ms, "fewshot_ssl_steps": d["fewshot_ssl_steps"]}
+
+
+def phase_few_shot_a(line: str) -> tuple:
+    """Alg. 2 on hard/overlap-32 at its budgets; returns the (sdpa_estimator,
+    kmeans) launches it should have made."""
+    spec = scenarios.HARD_OVERLAP_32
+    bundle = scenarios.build(spec, seed=SEED, device="cuda")
+    cfg = ProtocolConfig(
+        client_epochs=spec.budget("client_epochs", 20),
+        server_epochs=spec.budget("server_epochs", 50),
+    )
+    res = run_few_shot(SEED, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
+    check(res.ledger.comm_times() == 5, f"few-shot A: {res.ledger.comm_times()} comm times, not 5")
+    check(res.ledger.total_bytes() == 177408, f"few-shot A: {res.ledger.total_bytes()} bytes")
+    check(res.metric_name == "auc" and res.metric > 0.6, f"few-shot A: {res.metric}")
+    _few_shot_line(res, "A", spec.name, line)
+    # ③': one Eq. 10 launch a party (its K − 1 estimates fused); ③: 27
+    return len(bundle.split.aligned), cfg.kmeans_iters + 2
+
+
+def phase_few_shot_b(line: str) -> tuple:
+    """Alg. 2 at full CNN width, ``client_epochs`` cut to
+    FEW_B_CLIENT_EPOCHS; returns the (sdpa_estimator, kmeans) launches it
+    should have made."""
+    bundle = scenarios.build(IMAGE_B, seed=SEED, device="cuda")
+    split = bundle.split
+    cfg = ProtocolConfig(client_epochs=FEW_B_CLIENT_EPOCHS)
+    res = run_few_shot(SEED, split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
+    n_u = [u.shape[0] for u in split.unaligned]
+    rep = 4 * IMAGE_B.rep_dim
+    want = 4 * 2 * IMAGE_B.overlap * rep + sum(n * (rep + 4) for n in n_u)
+    check(want == 32099840, f"few-shot B: pools {n_u} give {want} bytes, not 32099840")
+    check(res.ledger.comm_times() == 5, f"few-shot B: {res.ledger.comm_times()} comm times, not 5")
+    check(res.ledger.total_bytes() == want, f"few-shot B: {res.ledger.total_bytes()} bytes")
+    check(res.metric_name == "accuracy" and res.metric > 0.2, f"few-shot B: {res.metric}")
+    print(
+        f"[few-shot B] {IMAGE_B.name}: pools {n_u}, client_epochs {cfg.client_epochs} (cut from "
+        f"{B_CLIENT_EPOCHS}), server_epochs {cfg.server_epochs}, ⑤' labeled rows "
+        f"{[IMAGE_B.overlap + n for n in n_u]}"
+    )
+    out = _few_shot_line(res, "B", IMAGE_B.name, line)
+    print(json.dumps({"few_shot_b": out}))
+    return len(split.aligned), cfg.kmeans_iters + 2
+
+
 def make_art(spec, shapes, gen):
     """A seeded artifact whose overlap reps are its extractors' outputs on
     N_O seeded aligned rows."""
@@ -1033,6 +1177,24 @@ def main() -> int:
         f"{runs_b - 2} Lloyd iterations over K·R = 2·{KMEANS_RESTARTS} + 1 inertia + 1 final)"
     )
 
+    # ---- the few-shot training path: counters from 0, read right after
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    t0 = time.time()
+    sdpa_a, km_a = phase_few_shot_a(line)
+    torch.cuda.empty_cache()
+    sdpa_b, km_b = phase_few_shot_b(line)
+    torch.cuda.synchronize()
+    few_shot_s = time.time() - t0
+    few_sdpa, few_km = ops.LAUNCHES, kops.LAUNCHES
+    check(few_sdpa == sdpa_a + sdpa_b, f"few-shot: sdpa_estimator launched {few_sdpa} times")
+    check(few_km == km_a + km_b, f"few-shot: kmeans launched {few_km} times")
+    check(rops.LAUNCHES == dops.LAUNCHES == 0, "a zoo kernel launched in few-shot training")
+    print(
+        f"[path] few-shot: sdpa_estimator launches {few_sdpa} (expected {sdpa_a + sdpa_b}), "
+        f"kmeans launches {few_km} (expected {km_a + km_b}) in {few_shot_s:.1f} s"
+    )
+    torch.cuda.empty_cache()
+
     cnn = ExtractorSpec(kind="cnn", rep_dim=128, widths=(32, 64, 128), blocks_per_stage=2)
     patches = make_art(cnn, [(16, 16, 3)] * 4, gen)
     torch.cuda.synchronize()
@@ -1069,8 +1231,9 @@ def main() -> int:
         f"prefill_fn and extractor forward) in {zoo_s:.1f} s"
     )
     print(
-        f"[time] {time.time() - t_start:.1f} s from the build on; the zoo's share: kernel phases "
-        f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s"
+        f"[time] {time.time() - t_start:.1f} s from the build on; few-shot phases "
+        f"{few_shot_s:.1f} s; the zoo's share: kernel phases {zoo_kernels_s:.1f} s, reduced zoo "
+        f"{zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s"
     )
 
     def entry(name, source, replaces, count, row):
@@ -1087,14 +1250,14 @@ def main() -> int:
             "sdpa_estimator",
             "src/repro_torch/kernels/sdpa_estimator/csrc/sdpa_estimator.cu",
             "src/repro/kernels/sdpa_estimator/kernel.py:38",
-            launches,
+            launches + few_sdpa,
             sdpa_row,
         ),
         entry(
             "kmeans",
             "src/repro_torch/kernels/kmeans/csrc/kmeans_assign.cu",
             "src/repro/kernels/kmeans/kernel.py:32",
-            km_launches,
+            km_launches + few_km,
             kmeans_row,
         ),
         entry(

@@ -1,15 +1,16 @@
-"""Few-shot server machinery: Eq. 10 representation estimation.
+"""Few-shot server machinery: Eq. 10 representation estimation and the
+Eq. 8-9 gate.
 
 Counterpart of ``repro.core.estimator``. ``sdpa_transform`` estimates
 Ĥ_u^B = softmax(H_u^A H_o^Aᵀ / √d) H_o^B through the SDPA estimator's
 wrapper, which launches the CUDA kernel for tensors on the card and runs the
-plain version for tensors on the CPU. ``infer_prob`` (the Eq. 8-9 gate)
-belongs to few-shot training and is not ported yet.
+plain version for tensors on the CPU. ``infer_prob`` gates a party's
+unaligned rows for pseudo-labeling (few-shot step ③').
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Callable, List, Sequence
 
 import torch
 
@@ -38,3 +39,24 @@ def estimate_missing_parties(
     """For party k's unaligned reps, estimate every other party's missing
     representation (the K-ary generalization of Eq. 10), in party order."""
     return [sdpa_transform(h_u_k, h_o_all[k], h_o_j) for j, h_o_j in enumerate(h_o_all) if j != k]
+
+
+@torch.no_grad()
+def infer_prob(
+    aux_logits_fn: Callable[[torch.Tensor], torch.Tensor],
+    joint_logits_fn: Callable[[torch.Tensor], torch.Tensor],
+    h_u_k: torch.Tensor,
+    full_rep: torch.Tensor,
+    threshold: float,
+) -> torch.Tensor:
+    """p̂_{u,i} = 1[ŷ^A = ŷ^{A,B}] · 1[p^A > t] · 1[p^{A,B} > t] · p^{A,B} (Eq. 9).
+
+    ``aux_logits_fn`` is the local-only f_c^k on h_u_k (N_u, d_k),
+    ``joint_logits_fn`` the joint f_c on the concatenated full_rep (N_u, Σd).
+    Returns float32 (N_u,); argmax ties go to the lowest class index."""
+    p_local = torch.softmax(aux_logits_fn(h_u_k).float(), dim=-1)
+    p_joint = torch.softmax(joint_logits_fn(full_rep).float(), dim=-1)
+    conf_local, conf_joint = p_local.amax(dim=-1), p_joint.amax(dim=-1)
+    agree = p_local.argmax(dim=-1) == p_joint.argmax(dim=-1)
+    gate = agree & (conf_local > threshold) & (conf_joint > threshold)
+    return gate.float() * conf_joint

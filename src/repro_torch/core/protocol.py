@@ -1,9 +1,10 @@
-"""One-shot VFL (Alg. 1) end to end, with its communication ledger.
+"""One-shot (Alg. 1) and few-shot (Alg. 2) VFL end to end, with the
+communication ledger.
 
-Counterpart of ``repro.core.protocol::run_one_shot`` at one seed and without
-faults. Every client↔server transfer is logged in a :class:`CommLedger`
-with the reference's events, tags and rounds, so the paper's communication
-columns come from the training path itself:
+Counterpart of ``repro.core.protocol::run_one_shot`` and ``run_few_shot``
+at one seed and without faults. Every client↔server transfer is logged in a
+:class:`CommLedger` with the reference's events, tags and rounds, so the
+paper's communication columns come from the training path itself:
 
 1. ① clients upload their overlap representations H_o^k (round 1);
 2. ② the server sends back ∇_{H_o^k} L (round 2);
@@ -13,17 +14,28 @@ columns come from the training path itself:
 6. ⑥ the server fits its classifier on them;
 
 then the held-out split is scored (AUC for two classes, else accuracy).
+Few-shot continues from there with one more round trip:
+
+1. ①' clients upload their unaligned reps H_u^k with the ⑤ upload (round 3);
+2. ②' the server fits an aux classifier f_c^k on each H_o^k;
+3. ③' it estimates every party's missing reps of H_u^k (Eq. 10, the
+   ``sdpa_estimator`` kernel on the card) and gates the rows (Eq. 8-9);
+4. ④' p̂ goes down (round 4);
+5. ⑤' each client re-runs SSL with its gated rows added to the labeled set;
+6. ⑥' clients upload final overlap reps (round 5); the server re-fits f_c.
+
 Everything runs on ``device`` (``cuda`` unless the caller says ``"cpu"``).
 Randomness comes from two generators seeded with ``seed``: one on the CPU
-(weight init, integer schedule seeds) and one on the device (augmentation
-and k-means++ draws, gradient noise).
+(weight init, integer schedule seeds) and one on the device (augmentation,
+k-means++ and gate draws, gradient noise). Few-shot's one-shot pass draws
+exactly what ``run_one_shot`` draws at the same seed.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import asdict, dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,7 +49,13 @@ from repro_torch.core.ssl import SSLConfig
 from repro_torch.data.vertical import VerticalSplit
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import dispatch
-from repro_torch.engine.local_ssl import SSLHParams, schedule_steps, seed_from, train_party_ssl
+from repro_torch.engine.local_ssl import (
+    PartyTask,
+    SSLHParams,
+    schedule_steps,
+    seed_from,
+    train_party_ssl,
+)
 
 KMEANS_RESTARTS = 4  # the reference's step-③ default
 _DEVICE_STREAM = 7919  # offset of the device generator's seed from the host's
@@ -50,6 +68,9 @@ class ProtocolConfig:
     batch_size: int = 32  # B (paper: 32)
     client_lr: float = 0.01  # η_c (paper: 0.01)
     server_lr: float = 0.01  # η_s (paper: 0.01)
+    fewshot_threshold: float = 0.9  # t in Eq. 9
+    fewshot_stochastic_gate: bool = False  # Bernoulli(p̂) draws instead of keeping every p̂ > 0
+    fewshot_relabel_overlap: bool = False  # ⑤': re-predict the overlap rows, not reuse Ŷ_o^k
     grad_dp_sigma: float = 0.0  # Gaussian noise on partial grads, × each grad's std
     kmeans_iters: int = 25
     unlabeled_ratio: int = 2
@@ -156,26 +177,25 @@ def _log_round(ledger: CommLedger, direction: str, tag: str, payloads: Sequence)
         ledger.log_bytes(k, direction, tag, nbytes(p), round=r)
 
 
-def run_one_shot(
-    seed: int,
+def _generators(seed: int, dev: torch.device) -> Tuple[torch.Generator, torch.Generator]:
+    """The run's CPU generator and its device generator."""
+    host = torch.Generator().manual_seed(seed)
+    return host, torch.Generator(device=dev).manual_seed(seed + _DEVICE_STREAM)
+
+
+def _one_shot_pass(
     split: VerticalSplit,
     extractors: Sequence[ExtractorSpec],
     ssl_cfgs: Sequence[SSLConfig],
-    cfg: Optional[ProtocolConfig] = None,
-    ledger: Optional[CommLedger] = None,
-    device: DeviceLike = None,
-) -> VFLResult:
-    """Alg. 1 one-shot VFL on ``split``: K parties with the extractors of
-    ``extractors`` and the SSL recipes of ``ssl_cfgs``. The split is moved to
-    ``device`` first. ``diagnostics`` carries the k-means purity, the SSL
-    sessions' last metrics and steps, and each step's time (``step_ms``)."""
-    cfg = cfg if cfg is not None else ProtocolConfig()
-    ledger = ledger if ledger is not None else CommLedger()
-    dev = resolve_device(device)
-    split = _to_device(split, dev)
-    host = torch.Generator().manual_seed(seed)
-    draws = torch.Generator(device=dev).manual_seed(seed + _DEVICE_STREAM)
-    clock = _StepClock(dev)
+    cfg: ProtocolConfig,
+    ledger: CommLedger,
+    host: torch.Generator,
+    draws: torch.Generator,
+    clock: _StepClock,
+) -> Tuple[VFLResult, List[torch.Tensor]]:
+    """Alg. 1 on a split already on its device, drawing from the caller's
+    generators; returns the result and the step-⑤ uploads (few-shot's H_o)."""
+    dev = split.labels.device
     clients = _build_clients(split, extractors, ssl_cfgs, host, dev)
     server = VFLServer(num_classes=split.num_classes)
     num_classes = split.num_classes
@@ -236,6 +256,166 @@ def run_one_shot(
         "ssl_steps": [schedule_steps(x.shape[0], hp) for x in split.aligned],
         "step_ms": clock.ms,
     }
+    result = VFLResult(name, metric, ledger, clients, server, tuple(extractors), cfg, diags)
+    return result, reps
+
+
+def run_one_shot(
+    seed: int,
+    split: VerticalSplit,
+    extractors: Sequence[ExtractorSpec],
+    ssl_cfgs: Sequence[SSLConfig],
+    cfg: Optional[ProtocolConfig] = None,
+    ledger: Optional[CommLedger] = None,
+    device: DeviceLike = None,
+) -> VFLResult:
+    """Alg. 1 one-shot VFL on ``split``: K parties with the extractors of
+    ``extractors`` and the SSL recipes of ``ssl_cfgs``. The split is moved to
+    ``device`` first. ``diagnostics`` carries the k-means purity, the SSL
+    sessions' last metrics and steps, and each step's time (``step_ms``)."""
+    cfg = cfg if cfg is not None else ProtocolConfig()
+    ledger = ledger if ledger is not None else CommLedger()
+    dev = resolve_device(device)
+    split = _to_device(split, dev)
+    host, draws = _generators(seed, dev)
+    return _one_shot_pass(split, extractors, ssl_cfgs, cfg, ledger, host, draws, _StepClock(dev))[0]
+
+
+def fewshot_phase5_labels(
+    client: VFLClient,
+    x_o: torch.Tensor,
+    x_u: torch.Tensor,
+    pseudo_overlap: torch.Tensor,
+    relabel_overlap: bool = False,
+) -> torch.Tensor:
+    """Labels of the phase-⑤' labeled set ``x_o ∘ x_u`` (Alg. 2 l.11-19):
+    the overlap rows keep the step-③ pseudo-labels Ŷ_o^k (or, with
+    ``relabel_overlap``, the local head's predictions), the pool rows take
+    the local head's predictions (the Eq. 9 gate masks them)."""
+    y_o = client.predict(x_o) if relabel_overlap else pseudo_overlap.long()
+    return torch.cat([y_o, client.predict(x_u)])
+
+
+def fewshot_task(
+    client: VFLClient,
+    x_o: torch.Tensor,
+    x_u: torch.Tensor,
+    probs: torch.Tensor,
+    pseudo_overlap: torch.Tensor,
+    cfg: ProtocolConfig,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[PartyTask, torch.Tensor]:
+    """One party's phase-⑤' SSL task and its take mask (N_u,) float32.
+
+    The labeled set is the whole ``x_o ∘ x_u`` at capacity N_o + N_u with
+    the mask ``[1…1 ∘ take]``; the unlabeled set is the whole pool with the
+    mask ``1 − take``, so no row is in both. ``take`` keeps every gated row
+    (p̂ > 0, the paper's rule), or under ``cfg.fewshot_stochastic_gate`` is a
+    Bernoulli(p̂) draw from the device ``generator``."""
+    if cfg.fewshot_stochastic_gate:
+        take = torch.bernoulli(probs.clamp(0.0, 1.0), generator=generator)
+    else:
+        take = (probs > 0).float()
+    x_lab = torch.cat([x_o, x_u])
+    y_lab = fewshot_phase5_labels(client, x_o, x_u, pseudo_overlap, cfg.fewshot_relabel_overlap)
+    lab_mask = torch.cat([torch.ones(x_o.shape[0], device=take.device), take])
+    task = ssl_task_for(client, x_lab, y_lab, x_u, labeled_mask=lab_mask, unlabeled_mask=1.0 - take)
+    return task, take
+
+
+def _rate(mask: torch.Tensor) -> float:
+    """Mean of a 0/1 mask; 0 for an empty pool."""
+    return float(mask.float().mean()) if mask.numel() else 0.0
+
+
+def run_few_shot(
+    seed: int,
+    split: VerticalSplit,
+    extractors: Sequence[ExtractorSpec],
+    ssl_cfgs: Sequence[SSLConfig],
+    cfg: Optional[ProtocolConfig] = None,
+    ledger: Optional[CommLedger] = None,
+    device: DeviceLike = None,
+) -> VFLResult:
+    """Alg. 2 few-shot VFL on ``split``: the one-shot pass of
+    :func:`run_one_shot` at the same seed, then one more round trip (①'-⑥').
+    ``diagnostics`` adds to the one-shot pass's: its metric
+    (``one_shot_metric``), step ③''s inputs and outputs (``fewshot_step3p``:
+    H_u^k, the ⑤ uploads H_o^k, the Eq. 10 estimates of each party, p̂, and
+    the joint f_c that gated them), the per-party gate and take rates, the
+    ⑤' sessions' last metrics (appended to ``ssl_metrics``) and steps
+    (``fewshot_ssl_steps``), and each round-2 step's time in ``step_ms``."""
+    cfg = cfg if cfg is not None else ProtocolConfig()
+    ledger = ledger if ledger is not None else CommLedger()
+    dev = resolve_device(device)
+    split = _to_device(split, dev)
+    host, draws = _generators(seed, dev)
+    clock = _StepClock(dev)
+    one, h_o = _one_shot_pass(split, extractors, ssl_cfgs, cfg, ledger, host, draws, clock)
+    clients, server = one.clients, one.server
+    diags = dict(one.diagnostics, one_shot_metric=one.metric)
+
+    # ①' unaligned reps go up in the ⑤ upload's round
+    h_u = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(clients, split.unaligned)]
+    r5 = max(e.round for e in ledger.events)
+    for k, h in enumerate(h_u):
+        ledger.log_bytes(k, "up", "reps_unaligned", nbytes(h), round=r5)
+    clock.lap("1p_unaligned")
+
+    # ②' the server fits f_c^k on each H_o^k (f_c is ⑥'s)
+    server.fit_aux_classifiers(
+        [h.float() for h in h_o],
+        split.labels,
+        epochs=cfg.server_epochs,
+        batch_size=cfg.batch_size,
+        learning_rate=cfg.server_lr,
+        generator=host,
+    )
+    clock.lap("2p_aux_fit")
+
+    # ③' Eq. 10 estimates + Eq. 8-9 gate per party;  ④' p̂ goes down
+    ests: List[List[torch.Tensor]] = [[] for _ in h_u]
+    probs = [
+        dispatch.fewshot_probs(server, k, h, h_o, cfg.fewshot_threshold, ests[k])
+        for k, h in enumerate(h_u)
+    ]
+    _log_round(ledger, "down", "pseudo_label_probs", probs)
+    clock.lap("3p_estimate_gate")
+    step3p = dict(h_u=h_u, h_o=h_o, estimates=ests, probs=probs, joint=server.classifier)
+
+    # ⑤' each party adds its gated rows to the labeled set and re-runs SSL
+    hp = cfg.ssl_hparams()
+    tasks = [
+        fewshot_task(c, x_o, x_u, p, y_o, cfg, draws)
+        for c, x_o, x_u, p, y_o in zip(
+            clients, split.aligned, split.unaligned, probs, diags["pseudo_labels"]
+        )
+    ]
+    ssl_metrics = [train_party_ssl(t, hp, seed_from(host), generator=draws) for t, _ in tasks]
+    clock.lap("5p_local_ssl")
+
+    # ⑥' final overlap reps go up; the server re-fits a fresh f_c on them
+    reps = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(clients, split.aligned)]
+    _log_round(ledger, "up", "reps_overlap_final", reps)
+    server.train_classifier(
+        [r.float() for r in reps],
+        split.labels,
+        epochs=cfg.server_epochs,
+        batch_size=cfg.batch_size,
+        learning_rate=cfg.server_lr,
+        generator=host,
+    )
+    clock.lap("6p_server_refit")
+
+    name, metric = _evaluate(server, clients, split)
+    clock.lap("eval_few_shot")
+    diags.update(
+        fewshot_step3p=step3p,
+        fewshot_gate_rate=[_rate(p > 0) for p in probs],
+        fewshot_take_rate=[_rate(take) for _, take in tasks],
+        ssl_metrics=diags["ssl_metrics"] + ssl_metrics,
+        fewshot_ssl_steps=[schedule_steps(t.x_labeled.shape[0], hp) for t, _ in tasks],
+    )
     return VFLResult(name, metric, ledger, clients, server, tuple(extractors), cfg, diags)
 
 

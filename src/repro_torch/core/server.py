@@ -1,7 +1,8 @@
-"""VFL server: label holder, partial gradients, classifier fit.
+"""VFL server: label holder, partial gradients, classifier fits.
 
-Counterpart of ``repro.core.server`` for steps ② and ⑥. The server owns Y_o
-and θ_c and sends clients only ∇_{H_o^k} L (and C). The fit is a Python loop
+Counterpart of ``repro.core.server`` for steps ② and ⑥ and few-shot's aux
+classifiers (②'). The server owns Y_o, θ_c and the θ_c^k and sends clients
+only ∇_{H_o^k} L (and C) and p̂. A fit is a Python loop
 over the numpy-seeded schedule of ``_fit_schedule`` (clip 5.0, SGD with
 momentum 0.9); the reference's cached ``lax.scan`` session has no
 counterpart.
@@ -9,8 +10,8 @@ counterpart.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,9 +33,31 @@ def concat_reps(reps: Sequence[torch.Tensor]) -> torch.Tensor:
 class VFLServer:
     num_classes: int
     classifier: Optional[nn.Module] = None  # joint f_c
+    aux_classifiers: List[nn.Module] = field(default_factory=list)  # f_c^k
 
     def _fresh_classifier(self, in_dim: int, generator: torch.Generator, device) -> nn.Module:
         return make_classifier(in_dim, self.num_classes).init_(generator).to(device)
+
+    def _fit_fresh(
+        self,
+        h: torch.Tensor,
+        labels: torch.Tensor,
+        epochs: int,
+        batch_size: int,
+        learning_rate: float,
+        generator: torch.Generator,
+        seed0: Optional[int] = None,
+    ) -> nn.Module:
+        """A fresh head drawn from the CPU ``generator``, fitted on ``h``
+        over the schedule of ``seed0`` (unless given, drawn next from the
+        same generator)."""
+        h = h.detach()
+        clf = self._fresh_classifier(h.shape[-1], generator, h.device)
+        seed0 = seed_from(generator) if seed0 is None else seed0
+        schedule = fit_schedule(seed0, h.shape[0], epochs, batch_size)
+        if schedule is not None:
+            fit(clf, h, labels, schedule, learning_rate)
+        return clf
 
     # ------------------------------------------------- step ②: partial grads
     def partial_gradients(
@@ -71,13 +94,36 @@ class VFLServer:
         """Re-fit a freshly initialised f_c on the refreshed reps. The head's
         init and, unless given, the schedule seed come from the CPU
         ``generator``."""
-        h = concat_reps(reps).detach()
-        self.classifier = self._fresh_classifier(h.shape[-1], generator, h.device)
-        seed0 = seed_from(generator) if seed0 is None else seed0
-        schedule = fit_schedule(seed0, h.shape[0], epochs, batch_size)
-        if schedule is not None:
-            fit(self.classifier, h, labels, schedule, learning_rate)
+        self.classifier = self._fit_fresh(
+            concat_reps(reps), labels, epochs, batch_size, learning_rate, generator, seed0
+        )
         return self
+
+    # ----------------------------------- few-shot ②': aux classifiers f_c^k
+    def fit_aux_classifiers(
+        self,
+        reps: Sequence[torch.Tensor],
+        labels: torch.Tensor,
+        epochs: int = 50,
+        batch_size: int = 32,
+        learning_rate: float = 0.01,
+        *,
+        generator: torch.Generator,
+    ) -> "VFLServer":
+        """θ_c^k ← argmin CE(f_c^k(H_o^k), Y_o) for every k (Alg. 2 l.2).
+        Per party, in party order: the head's init, then the schedule seed,
+        from the CPU ``generator`` (as the reference splits k0, k1 per
+        party)."""
+        self.aux_classifiers = [
+            self._fit_fresh(h, labels, epochs, batch_size, learning_rate, generator) for h in reps
+        ]
+        return self
+
+    def aux_logits_fn(self, k: int) -> Callable[[torch.Tensor], torch.Tensor]:
+        return self.aux_classifiers[k]
+
+    def joint_logits_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        return self.classifier
 
     @torch.no_grad()
     def predict_logits(self, reps: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Kernel dispatch for step ③'s k-means and the Eq. 10 estimates.
+"""Kernel dispatch for step ③'s k-means, the Eq. 10 estimates and few-shot
+step ③' (estimates + the Eq. 8-9 gate).
 
 Counterpart of ``repro.engine.dispatch``. The reference routes through a
 ``use_kernels`` switch and a compile-session cache; here the route follows
@@ -9,7 +10,7 @@ a counterpart.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 
@@ -76,3 +77,32 @@ def estimate_missing_fused(
         b = torch.stack([h_o_all[j] for j in others])
         return list(estimator.sdpa_transform_batched(q, a, b).unbind(0))
     return estimate_missing(h_u_k, h_o_all, k)
+
+
+def fewshot_probs(
+    server: Any,
+    k: int,
+    h_u_k: torch.Tensor,
+    h_o_all: Sequence[torch.Tensor],
+    threshold: float,
+    estimates_out: Optional[list] = None,
+) -> torch.Tensor:
+    """Few-shot step ③' for party k at one seed (the S = 1 case of the
+    reference's ``fewshot_probs_seeds``): estimate the K−1 missing parties
+    of its unaligned reps h_u_k (Eq. 10, :func:`estimate_missing_fused`:
+    one ``sdpa_estimator`` launch per party at K = 2), concatenate in party
+    order with h_u_k in slot k, and gate with ``server``'s fitted f_c^k and
+    f_c (Eq. 8-9). Returns p̂, float32 (N_u,); ``estimates_out`` (if given)
+    receives the estimates, in party order."""
+    ests = estimate_missing_fused(h_u_k, h_o_all, k)
+    if estimates_out is not None:
+        estimates_out.extend(ests)
+    parts = [e.float() for e in ests]
+    parts.insert(k, h_u_k.float())
+    return estimator.infer_prob(
+        server.aux_logits_fn(k),
+        server.joint_logits_fn(),
+        h_u_k.float(),
+        torch.cat(parts, dim=-1),
+        threshold,
+    )

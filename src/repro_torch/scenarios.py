@@ -1,8 +1,9 @@
 """Named VFL conditions the port runs, with the reference's parameters.
 
 A port-local copy of the parts of ``repro.scenarios`` that the port's
-training path needs: :class:`ScenarioSpec`, the ``hard/overlap-32`` entry of
-``repro/scenarios/catalog.py`` (the parity and acceptance configuration),
+training path needs: :class:`ScenarioSpec`, the ``hard/overlap-32`` and
+``hard/overlap-64`` entries of ``repro/scenarios/catalog.py`` (the parity and
+acceptance configurations),
 and :func:`build`, which draws the data with the port's own generators
 (:mod:`repro_torch.data.synthetic`, seeded ``1000 + seed`` as the reference
 seeds its key) and partitions it with ``seed``.
@@ -56,27 +57,34 @@ class ScenarioBundle:
     ssl_cfgs: List[SSLConfig]
 
 
-HARD_OVERLAP_32 = ScenarioSpec(
-    name="hard/overlap-32",
-    modality="tabular",
-    generator="cluster_tabular",
-    overlap=32,
-    num_samples=3000,
-    gen_params=(
-        ("num_informative", 24),
-        ("num_nuisance", 16),
-        ("num_clusters", 12),
-        ("cluster_std", 0.3),
-        ("nuisance_std", 2.0),
-        ("label_noise", 0.15),
-    ),
-    feature_sizes=(20, 20),
-    rep_dim=16,
-    ssl_params=(("confidence_threshold", 0.8),),
-    budgets=(("client_epochs", 80), ("server_epochs", 40), ("iterations", 400)),
-)
+def _hard_overlap(n_o: int) -> ScenarioSpec:
+    """The hardened limited-overlap task: wide clusters, nuisance dims,
+    label flips, N_o = ``n_o`` of 3000 rows."""
+    return ScenarioSpec(
+        name=f"hard/overlap-{n_o}",
+        modality="tabular",
+        generator="cluster_tabular",
+        overlap=n_o,
+        num_samples=3000,
+        gen_params=(
+            ("num_informative", 24),
+            ("num_nuisance", 16),
+            ("num_clusters", 12),
+            ("cluster_std", 0.3),
+            ("nuisance_std", 2.0),
+            ("label_noise", 0.15),
+        ),
+        feature_sizes=(20, 20),
+        rep_dim=16,
+        ssl_params=(("confidence_threshold", 0.8),),
+        budgets=(("client_epochs", 80), ("server_epochs", 40), ("iterations", 400)),
+    )
 
-CATALOG: Dict[str, ScenarioSpec] = {HARD_OVERLAP_32.name: HARD_OVERLAP_32}
+
+HARD_OVERLAP_32 = _hard_overlap(32)
+HARD_OVERLAP_64 = _hard_overlap(64)
+
+CATALOG: Dict[str, ScenarioSpec] = {s.name: s for s in (HARD_OVERLAP_32, HARD_OVERLAP_64)}
 
 
 def extractor_specs_for(spec: ScenarioSpec) -> Tuple[ExtractorSpec, ...]:

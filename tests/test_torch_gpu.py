@@ -18,8 +18,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from repro_torch import scenarios  # noqa: E402
 from repro_torch.checkpoint import ExtractorSpec, init_artifact  # noqa: E402
 from repro_torch.core import clustering  # noqa: E402
+from repro_torch.core.protocol import ProtocolConfig, run_few_shot  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
 from repro_torch.kernels.kmeans import ops as kops  # noqa: E402
@@ -80,6 +82,8 @@ def _inputs(b, nu, no, d, db, device, seed=0):
         (3, 100, 9, 200, 256),  # d_b = 256: two column chunks
         (1, 1024, 2049, 128, 128),  # 13 key ranges, the last tile one key long
         (1, 22976, 2048, 128, 128),  # few-shot step ③': one range, 359 row blocks
+        (1, 1184, 32, 16, 16),  # hard/overlap-32's ③': d below a TMA box, one key tile
+        (1, 1168, 64, 16, 16),  # hard/overlap-64's ③': two key tiles
     ],
 )
 def test_kernel_matches_plain_version(shape, cuda):
@@ -181,6 +185,23 @@ def test_partial_party_query_is_one_launch(cuda):
         ]
         want = art.classifier(torch.cat(reps, dim=-1))
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_few_shot_step3p_launches_the_kernel_once_a_party(cuda):
+    """Alg. 2 on hard/overlap-32 on the card at a few epochs: the ledger's
+    5 comm times and 177408 bytes, and step ③' as one ``sdpa_estimator``
+    launch a party (K = 2), beside step ③'s 27 k-means launches."""
+    spec = scenarios.HARD_OVERLAP_32
+    bundle = scenarios.build(spec, seed=0, device=cuda)
+    cfg = ProtocolConfig(client_epochs=2, server_epochs=2)
+    before, before_km = ops.LAUNCHES, kops.LAUNCHES
+    res = run_few_shot(0, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device=cuda)
+    assert ops.LAUNCHES - before == len(bundle.split.aligned) == 2
+    assert kops.LAUNCHES - before_km == cfg.kmeans_iters + 2
+    assert res.ledger.comm_times() == 5 and res.ledger.total_bytes() == 177408
+    probs = res.diagnostics["fewshot_step3p"]["probs"]
+    assert all(p.is_cuda and p.dtype == torch.float32 and p.shape == (1184,) for p in probs)
+    assert 0.0 <= res.metric <= 1.0
 
 
 def _unit(shape, device, seed, dtype=torch.float32):
