@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Drives ``repro_torch`` (never JAX, never the reference package) through its
-three paths: training, serving, and model-zoo serving. Phases, each of
+paths: training (one-shot, few-shot, the iterative baselines and few-shot +
+finetune), serving, and model-zoo serving. Phases, each of
 which fails the run (nonzero exit, no result line) if it goes wrong:
 
 1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
@@ -36,16 +37,31 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
 6. few-shot B: Alg. 2 on one-shot B's configuration, ③' at (1, 22976, 2048,
    128, 128), ``client_epochs`` cut to FEW_B_CLIENT_EPOCHS: 5 comm times,
    32099840 bytes, accuracy > 0.2, the same ③' check; each step timed;
-7. serving (K = 2): the model B trained, ragged requests through
+7. baselines A: SplitNN (``run_vanilla``), FedBCD and FedCVT on
+   ``hard/overlap-32`` at its 400 iterations: AUC > 0.5 each, the exact
+   ledgers (3276800, 655360 and 6553600 bytes in 800, 160 and 800 comm
+   times), ms an iteration; one-shot A's AUC margin and byte ratio over
+   vanilla on the same split;
+8. baselines B: the three at one-shot B's configuration, cut to
+   B_BASELINE_ITERATIONS (FedBCD: 300 rounds of Q = 5): accuracy > 0.2,
+   98304000, 19660800 and 196608000 bytes; and B's first 5 SplitNN
+   iterations on the card against the CPU from the same parameters
+   (losses and parameters within LOGIT_RTOL), beside the CPU against
+   itself at one thread. No kernel launches in 7-8;
+9. few-shot + finetune A: ``run_few_shot_finetune`` on ``hard/overlap-32``
+   at its budgets and 200 finetune iterations: 1815808 bytes in 405 comm
+   times, its few-shot pass's AUC equal to few-shot A's, AUC > 0.6; 2
+   ``sdpa_estimator`` and 27 ``kmeans`` launches;
+10. serving (K = 2): the model B trained, ragged requests through
    ``serve_traffic`` at capacity 1024, held against the unbatched
    ``predict_logits``;
-8. partial-party queries (K = 2 over B's 2048 refreshed overlap reps: one
+11. partial-party queries (K = 2 over B's 2048 refreshed overlap reps: one
    B = 1 launch each; K = 4 (16, 16, 3) patches with seeded random weights:
    one B = 3 launch each), held against the plain route on the same inputs;
-9. zoo, small: reduced phi4-mini (2 layers, G = 2, f32 activations) served
+12. zoo, small: reduced phi4-mini (2 layers, G = 2, f32 activations) served
    on the card and on the CPU's plain route with the same weights: equal
    greedy tokens, logits within 1e-4;
-10. zoo, full width (the third path): ``phi4-mini-3.8b`` at its own config
+13. zoo, full width (the third path): ``phi4-mini-3.8b`` at its own config
    (3,836,021,760 f32 parameters, seeded on the card). ``launch/serve``'s
    prefill + greedy decode at batch 4, prompt 32, 16 new tokens, once to
    warm up and once timed (p50/p99 per token step, tokens/s, peak memory);
@@ -56,7 +72,8 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    forward.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
-5-6, then 7-8, then 10) and read just after. Output ends with a ``{"kernels": [...]}`` line,
+5-6, then 7-8, then 9, then 10-11, then 13) and read just after. Output ends
+with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -81,13 +98,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import scenarios  # noqa: E402
 from repro_torch.checkpoint import ExtractorSpec, init_artifact  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import baselines  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
     KMEANS_RESTARTS,
     ProtocolConfig,
     run_few_shot,
+    run_few_shot_finetune,
     run_one_shot,
 )
 from repro_torch.core.server import VFLServer  # noqa: E402
+from repro_torch.data import VerticalSplit  # noqa: E402
 from repro_torch.engine import dispatch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
@@ -182,6 +202,34 @@ B_CLIENT_EPOCHS = 20
 # that the phase stays near a minute: step ⑤' then runs 782 SSL steps a
 # party (N_o + N_u = 25024 labeled rows), step ④ 64. Server epochs uncut (50).
 FEW_B_CLIENT_EPOCHS = 1
+# The baselines on B: the paper runs 32000 iterations at N_o = 2048
+# (benchmarks/comm_cost.py). Cut to 1500 (vanilla, FedCVT) and 300 rounds of
+# Q = 5 (FedBCD) so that the three stay under about two minutes together: at
+# 2000 they took 138.6 s on an H100 (17.8 ms a vanilla iteration, 31.7 a FedCVT
+# one, 99.1 ms a FedBCD round; PERF.md, PR 21).
+B_BASELINE_ITERATIONS = 1500
+# Card ≡ CPU on B's image training path: the first 5 SplitNN iterations from
+# the same parameters on the card and on the CPU (TF32 off): losses within
+# LOGIT_RTOL of the largest loss, final parameters within LOGIT_RTOL of the
+# largest parameter. Five, not ten: unclipped momentum SGD on the CNN about
+# doubles a rounding difference each step, so past a few steps the CPU
+# against itself (1 thread against all) nears the bar; the script prints that
+# floor beside the card's error.
+B_CONTRAST_ITERATIONS = 5
+B_CONTRAST_TEST_ROWS = 256
+# (bytes, comm times) of the baselines on hard/overlap-32 at its 400
+# iterations and on B: 2 parties, bs 32, f32 reps of 16 and 128; FedBCD in
+# iterations // Q rounds; FedCVT ships 2x.
+BASELINE_LEDGERS = {
+    "A": {"vanilla": (3276800, 800), "fedbcd": (655360, 160), "fedcvt": (6553600, 800)},
+    "B": {"vanilla": (98304000, 3000), "fedbcd": (19660800, 600), "fedcvt": (196608000, 3000)},
+}
+BASELINE_RUNNERS = (
+    ("vanilla", baselines.run_vanilla),
+    ("fedbcd", baselines.run_fedbcd),
+    ("fedcvt", baselines.run_fedcvt),
+)
+FINETUNE_ITERATIONS = 200
 # Few-shot step ③' gate decisions, card vs the CPU's plain route: equal
 # except on rows where a head's top confidence lies within NEAR_GATE of t,
 # or its top two class probabilities within NEAR_GATE of each other (the
@@ -745,9 +793,9 @@ def phase_decode_plans(gen) -> None:
                 )
 
 
-def phase_one_shot_a(line: str) -> int:
+def phase_one_shot_a(line: str) -> tuple:
     """Alg. 1 on hard/overlap-32 (the port's own data); returns the k-means
-    launches it should have made."""
+    launches it should have made and the result."""
     spec = scenarios.HARD_OVERLAP_32
     bundle = scenarios.build(spec, seed=SEED, device="cuda")
     cfg = ProtocolConfig(
@@ -765,7 +813,7 @@ def phase_one_shot_a(line: str) -> int:
         f"[one-shot A] {spec.name}: AUC {res.metric:.4f} | {res.ledger.total_bytes()} bytes in "
         f"{res.ledger.comm_times()} comm times | purity {purity} | step ms: {steps} | {line}"
     )
-    return cfg.kmeans_iters + 2
+    return cfg.kmeans_iters + 2, res
 
 
 def phase_one_shot_b(line: str):
@@ -874,7 +922,7 @@ def _few_shot_line(res, what: str, spec_name: str, line: str) -> dict:
 
 def phase_few_shot_a(line: str) -> tuple:
     """Alg. 2 on hard/overlap-32 at its budgets; returns the (sdpa_estimator,
-    kmeans) launches it should have made."""
+    kmeans) launches it should have made and its AUC."""
     spec = scenarios.HARD_OVERLAP_32
     bundle = scenarios.build(spec, seed=SEED, device="cuda")
     cfg = ProtocolConfig(
@@ -887,7 +935,7 @@ def phase_few_shot_a(line: str) -> tuple:
     check(res.metric_name == "auc" and res.metric > 0.6, f"few-shot A: {res.metric}")
     _few_shot_line(res, "A", spec.name, line)
     # ③': one Eq. 10 launch a party (its K − 1 estimates fused); ③: 27
-    return len(bundle.split.aligned), cfg.kmeans_iters + 2
+    return len(bundle.split.aligned), cfg.kmeans_iters + 2, res.metric
 
 
 def phase_few_shot_b(line: str) -> tuple:
@@ -913,6 +961,172 @@ def phase_few_shot_b(line: str) -> tuple:
     out = _few_shot_line(res, "B", IMAGE_B.name, line)
     print(json.dumps({"few_shot_b": out}))
     return len(split.aligned), cfg.kmeans_iters + 2
+
+
+def _baseline_row(name: str, res, cell: str, spec_name: str, line: str) -> dict:
+    """Check a baseline run's ledger against BASELINE_LEDGERS[cell], print
+    it, and return its numbers."""
+    d = res.diagnostics
+    want = BASELINE_LEDGERS[cell][name]
+    got = (res.ledger.total_bytes(), res.ledger.comm_times())
+    check(got == want, f"{spec_name} {name}: (bytes, comm times) {got}, not {want}")
+    check(bool(torch.isfinite(d["losses"]).all()), f"{spec_name} {name}: a loss is not finite")
+    steps = d.get("iterations", d.get("rounds"))
+    ms = d["step_ms"]
+    row = {
+        "method": name,
+        "metric": res.metric,
+        "bytes": got[0],
+        "comm_times": got[1],
+        "steps": steps,
+        "ms_per_step": ms["session"] / steps,
+        "wall_ms": sum(ms.values()),
+        "final_loss": d["final_loss"],
+    }
+    unit = "round" if "Q" in d else "iteration"
+    each = f" of Q = {d['Q']} local updates" if "Q" in d else ""
+    print(
+        f"[baselines {cell}] {spec_name} {name}: "
+        f"{res.metric_name} {res.metric:.4f} | {got[0]} bytes in {got[1]} comm times | {steps} "
+        f"{unit}s{each}, {row['ms_per_step']:.3f} ms a {unit} | final loss {d['final_loss']:.4f} | "
+        f"setup {ms['setup']:.1f} session {ms['session']:.1f} eval {ms['eval']:.1f} ms | {line}"
+    )
+    return row
+
+
+def phase_baselines_a(line: str, one_shot) -> list:
+    """SplitNN, FedBCD and FedCVT on hard/overlap-32 at its budget of 400
+    iterations, beside one-shot A on the same split: AUC > 0.5 each (the
+    reference's bar), the exact ledgers, and one-shot's AUC margin and byte
+    ratio over vanilla (the paper's limited-overlap claim)."""
+    spec = scenarios.HARD_OVERLAP_32
+    bundle = scenarios.build(spec, seed=SEED, device="cuda")
+    cfg = baselines.IterativeConfig(iterations=spec.budget("iterations", 300))
+    rows = []
+    for name, fn in BASELINE_RUNNERS:
+        res = fn(SEED, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
+        check(res.metric_name == "auc" and res.metric > 0.5, f"A {name}: AUC {res.metric}")
+        rows.append(_baseline_row(name, res, "A", spec.name, line))
+    van = rows[0]
+    ratio = van["bytes"] / one_shot.ledger.total_bytes()
+    print(
+        f"[baselines A] one-shot A vs vanilla on {spec.name}: AUC {one_shot.metric:.4f} - "
+        f"{van['metric']:.4f} = {one_shot.metric - van['metric']:+.4f} | bytes "
+        f"{one_shot.ledger.total_bytes()} vs {van['bytes']} ({ratio:.1f}x fewer) | comm times "
+        f"{one_shot.ledger.comm_times()} vs {van['comm_times']}"
+    )
+    return rows
+
+
+def _params(res) -> list:
+    mods = [c.extractor for c in res.clients] + [res.server.classifier]
+    return [p.detach().cpu() for m in mods for p in m.parameters()]
+
+
+def _trajectory_err(a, b) -> tuple:
+    """(losses, parameters) of run a against run b: the largest difference
+    relative to b's largest loss, and to b's largest parameter."""
+    pa, pb = _params(a), _params(b)
+    scale = max(q.abs().max() for q in pb)
+    params = max((p - q).abs().max() for p, q in zip(pa, pb)) / scale
+    return _rel(a.diagnostics["losses"], b.diagnostics["losses"]), float(params)
+
+
+def check_b_card_equals_cpu(split: VerticalSplit, specs, ssl_cfgs) -> str:
+    """The first B_CONTRAST_ITERATIONS SplitNN iterations of B on the card
+    and on the CPU, from the same seed (the same initial parameters and
+    schedule): losses and final parameters within LOGIT_RTOL. Beside it the
+    CPU against itself at one thread, the floor that summation order alone
+    gives, and both again at twice the iterations (printed, not checked)."""
+    test_aligned = [x[:B_CONTRAST_TEST_ROWS] for x in split.test_aligned]
+    small = VerticalSplit(
+        aligned=split.aligned,
+        labels=split.labels,
+        unaligned=[u[:0] for u in split.unaligned],
+        test_aligned=test_aligned,
+        test_labels=split.test_labels[:B_CONTRAST_TEST_ROWS],
+        num_classes=split.num_classes,
+    )
+    threads = torch.get_num_threads()
+    out = []
+    for iterations in (B_CONTRAST_ITERATIONS, 2 * B_CONTRAST_ITERATIONS):
+        cfg = baselines.IterativeConfig(iterations=iterations)
+        card = baselines.run_vanilla(SEED, small, specs, ssl_cfgs, cfg, device="cuda")
+        cpu = baselines.run_vanilla(SEED, small, specs, ssl_cfgs, cfg, device="cpu")
+        torch.set_num_threads(1)
+        try:
+            cpu1 = baselines.run_vanilla(SEED, small, specs, ssl_cfgs, cfg, device="cpu")
+        finally:
+            torch.set_num_threads(threads)
+        err, floor = _trajectory_err(card, cpu), _trajectory_err(cpu1, cpu)
+        if iterations == B_CONTRAST_ITERATIONS:
+            check(err[0] <= LOGIT_RTOL, f"B card vs CPU: losses differ by {err[0]} relative")
+            check(err[1] <= LOGIT_RTOL, f"B card vs CPU: parameters differ by {err[1]} relative")
+        out.append(
+            f"{iterations} iterations: losses {err[0]:.3e}, parameters {err[1]:.3e} (CPU at 1 "
+            f"thread vs {threads}: {floor[0]:.3e}, {floor[1]:.3e})"
+        )
+    return (
+        f"card vs CPU ({threads} threads), SplitNN from the same parameters, relative to the "
+        f"largest loss and parameter; checked at {B_CONTRAST_ITERATIONS} iterations against "
+        f"{LOGIT_RTOL}: " + "; ".join(out)
+    )
+
+
+def phase_baselines_b(line: str) -> list:
+    """The three baselines at B's full CNN width (IMAGE_B, N_o = 2048), cut
+    to B_BASELINE_ITERATIONS: accuracy > 0.2 each and the exact ledgers; and
+    the card ≡ CPU check of B's first SplitNN iterations."""
+    bundle = scenarios.build(IMAGE_B, seed=SEED, device="cuda")
+    cfg = baselines.IterativeConfig(iterations=B_BASELINE_ITERATIONS)
+    rows = []
+    for name, fn in BASELINE_RUNNERS:
+        res = fn(SEED, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
+        check(res.metric_name == "accuracy" and res.metric > 0.2, f"B {name}: {res.metric}")
+        rows.append(_baseline_row(name, res, "B", IMAGE_B.name, line))
+        del res
+        torch.cuda.empty_cache()
+    contrast = check_b_card_equals_cpu(bundle.split, bundle.extractors, bundle.ssl_cfgs)
+    print(f"[baselines B] {contrast}")
+    print(json.dumps({"baselines_b": rows}))
+    return rows
+
+
+def phase_finetune_a(line: str, few_shot_auc: float) -> tuple:
+    """Few-shot + finetune on hard/overlap-32 at its budgets and 200
+    finetune iterations: its few-shot pass equals [few-shot A] (same seed,
+    same draws), the shared ledger, AUC > 0.6. Returns the (sdpa_estimator,
+    kmeans) launches it should have made."""
+    spec = scenarios.HARD_OVERLAP_32
+    bundle = scenarios.build(spec, seed=SEED, device="cuda")
+    cfg = ProtocolConfig(
+        client_epochs=spec.budget("client_epochs", 20),
+        server_epochs=spec.budget("server_epochs", 50),
+    )
+    res = run_few_shot_finetune(
+        SEED, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, FINETUNE_ITERATIONS, "cuda"
+    )
+    d = res.diagnostics
+    want = (
+        177408 + FINETUNE_ITERATIONS * 2 * 2 * 32 * spec.rep_dim * 4,
+        5 + 2 * FINETUNE_ITERATIONS,
+    )
+    got = (res.ledger.total_bytes(), res.ledger.comm_times())
+    check(got == want == (1815808, 405), f"finetune A: (bytes, comm times) {got}, not {want}")
+    check(
+        d["fewshot_metric"] == few_shot_auc,
+        f"finetune A: its few-shot pass's AUC {d['fewshot_metric']} != few-shot A's {few_shot_auc}",
+    )
+    check(res.metric_name == "auc" and res.metric > 0.6, f"finetune A: AUC {res.metric}")
+    ms = d["step_ms"]
+    print(
+        f"[few-shot + finetune A] {spec.name}: AUC {res.metric:.4f} after {FINETUNE_ITERATIONS} "
+        f"finetune iterations (its few-shot pass {d['fewshot_metric']:.4f}, equal to [few-shot A]) "
+        f"| {got[0]} bytes in {got[1]} comm times | finetune "
+        f"{ms['finetune_session'] / FINETUNE_ITERATIONS:.3f} ms an iteration, final loss "
+        f"{d['final_loss']:.4f} | total {sum(ms.values()):.1f} ms | {line}"
+    )
+    return len(bundle.split.aligned), cfg.kmeans_iters + 2
 
 
 def make_art(spec, shapes, gen):
@@ -1161,7 +1375,7 @@ def main() -> int:
     # ---- the training path: counters from 0, read right after
     torch.cuda.synchronize()
     ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
-    expected_km = phase_one_shot_a(line)
+    expected_km, one_shot_a = phase_one_shot_a(line)
     art_b, runs_b = phase_one_shot_b(line)
     expected_km += runs_b
     torch.cuda.synchronize()
@@ -1180,7 +1394,7 @@ def main() -> int:
     # ---- the few-shot training path: counters from 0, read right after
     ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
-    sdpa_a, km_a = phase_few_shot_a(line)
+    sdpa_a, km_a, few_shot_a_auc = phase_few_shot_a(line)
     torch.cuda.empty_cache()
     sdpa_b, km_b = phase_few_shot_b(line)
     torch.cuda.synchronize()
@@ -1194,6 +1408,39 @@ def main() -> int:
         f"kmeans launches {few_km} (expected {km_a + km_b}) in {few_shot_s:.1f} s"
     )
     torch.cuda.empty_cache()
+
+    # ---- the iterative baselines: counters from 0, read right after
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    t0 = time.time()
+    phase_baselines_a(line, one_shot_a)
+    baselines_a_s = time.time() - t0
+    t0 = time.time()
+    phase_baselines_b(line)
+    torch.cuda.synchronize()
+    baselines_b_s = time.time() - t0
+    launched = (ops.LAUNCHES, kops.LAUNCHES, rops.LAUNCHES, dops.LAUNCHES)
+    check(launched == (0, 0, 0, 0), f"a kernel launched in the iterative baselines: {launched}")
+    print(
+        f"[path] iterative: sdpa_estimator launches {ops.LAUNCHES}, kmeans launches "
+        f"{kops.LAUNCHES} (expected 0 and 0: FedCVT's Eq. 10 is plain ops, for its backward)"
+    )
+    del one_shot_a
+    torch.cuda.empty_cache()
+
+    # ---- few-shot + finetune: counters from 0, read right after
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    t0 = time.time()
+    sdpa_ft, km_ft = phase_finetune_a(line, few_shot_a_auc)
+    torch.cuda.synchronize()
+    finetune_s = time.time() - t0
+    ft_sdpa, ft_km = ops.LAUNCHES, kops.LAUNCHES
+    check(ft_sdpa == sdpa_ft, f"finetune: sdpa_estimator launched {ft_sdpa} times")
+    check(ft_km == km_ft, f"finetune: kmeans launched {ft_km} times")
+    check(rops.LAUNCHES == dops.LAUNCHES == 0, "a zoo kernel launched in few-shot + finetune")
+    print(
+        f"[path] finetune: sdpa_estimator launches {ft_sdpa} (expected {sdpa_ft}), kmeans "
+        f"launches {ft_km} (expected {km_ft}) in {finetune_s:.1f} s"
+    )
 
     cnn = ExtractorSpec(kind="cnn", rep_dim=128, widths=(32, 64, 128), blocks_per_stage=2)
     patches = make_art(cnn, [(16, 16, 3)] * 4, gen)
@@ -1232,8 +1479,9 @@ def main() -> int:
     )
     print(
         f"[time] {time.time() - t_start:.1f} s from the build on; few-shot phases "
-        f"{few_shot_s:.1f} s; the zoo's share: kernel phases {zoo_kernels_s:.1f} s, reduced zoo "
-        f"{zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s"
+        f"{few_shot_s:.1f} s; baselines A {baselines_a_s:.1f} s, baselines B {baselines_b_s:.1f} "
+        f"s, few-shot + finetune A {finetune_s:.1f} s; the zoo's share: kernel phases "
+        f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s"
     )
 
     def entry(name, source, replaces, count, row):
@@ -1250,14 +1498,14 @@ def main() -> int:
             "sdpa_estimator",
             "src/repro_torch/kernels/sdpa_estimator/csrc/sdpa_estimator.cu",
             "src/repro/kernels/sdpa_estimator/kernel.py:38",
-            launches + few_sdpa,
+            launches + few_sdpa + ft_sdpa,
             sdpa_row,
         ),
         entry(
             "kmeans",
             "src/repro_torch/kernels/kmeans/csrc/kmeans_assign.cu",
             "src/repro/kernels/kmeans/kernel.py:32",
-            km_launches + few_km,
+            km_launches + few_km + ft_km,
             kmeans_row,
         ),
         entry(

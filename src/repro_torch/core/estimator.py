@@ -4,12 +4,15 @@ Eq. 8-9 gate.
 Counterpart of ``repro.core.estimator``. ``sdpa_transform`` estimates
 Ĥ_u^B = softmax(H_u^A H_o^Aᵀ / √d) H_o^B through the SDPA estimator's
 wrapper, which launches the CUDA kernel for tensors on the card and runs the
-plain version for tensors on the CPU. ``infer_prob`` gates a party's
-unaligned rows for pseudo-labeling (few-shot step ③').
+plain version for tensors on the CPU; the kernel has no backward.
+``sdpa_transform_differentiable`` is Eq. 10 in plain tensor ops, for the
+one caller that differentiates through it (FedCVT's step). ``infer_prob``
+gates a party's unaligned rows for pseudo-labeling (few-shot step ③').
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Sequence
 
 import torch
@@ -22,6 +25,19 @@ def sdpa_transform(h_u_a: torch.Tensor, h_o_a: torch.Tensor, h_o_b: torch.Tensor
 
     Shapes: h_u_a (N_u, d_a), h_o_a (N_o, d_a), h_o_b (N_o, d_b)."""
     return ops.sdpa_estimate(h_u_a, h_o_a, h_o_b)
+
+
+def sdpa_transform_differentiable(
+    h_u_a: torch.Tensor, h_o_a: torch.Tensor, h_o_b: torch.Tensor
+) -> torch.Tensor:
+    """Eq. 10 with autograd through all three inputs, on any device.
+
+    The counterpart of the reference's jnp route of ``sdpa_transform``
+    (``repro/core/estimator.py``, without ``use_kernel``), which is what its
+    FedCVT step differentiates: ``softmax(H_u H_oᴬᵀ / √d) H_oᴮ`` in the
+    inputs' dtype. Shapes as :func:`sdpa_transform`."""
+    scores = (h_u_a @ h_o_a.T) / math.sqrt(h_u_a.shape[-1])
+    return torch.softmax(scores, dim=-1) @ h_o_b
 
 
 def sdpa_transform_batched(

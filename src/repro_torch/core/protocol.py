@@ -1,10 +1,11 @@
 """One-shot (Alg. 1) and few-shot (Alg. 2) VFL end to end, with the
 communication ledger.
 
-Counterpart of ``repro.core.protocol::run_one_shot`` and ``run_few_shot``
-at one seed and without faults. Every client↔server transfer is logged in a
-:class:`CommLedger` with the reference's events, tags and rounds, so the
-paper's communication columns come from the training path itself:
+Counterpart of ``repro.core.protocol::run_one_shot``, ``run_few_shot`` and
+``run_few_shot_finetune`` at one seed and without faults. Every
+client↔server transfer is logged in a :class:`CommLedger` with the
+reference's events, tags and rounds, so the paper's communication columns
+come from the training path itself:
 
 1. ① clients upload their overlap representations H_o^k (round 1);
 2. ② the server sends back ∇_{H_o^k} L (round 2);
@@ -23,6 +24,9 @@ Few-shot continues from there with one more round trip:
 4. ④' p̂ goes down (round 4);
 5. ⑤' each client re-runs SSL with its gated rows added to the labeled set;
 6. ⑥' clients upload final overlap reps (round 5); the server re-fits f_c.
+
+Few-shot + finetune (Tab. 1's last row) then trains the whole stack for a
+while as vanilla SplitNN (``baselines.run_vanilla``), on the same ledger.
 
 Everything runs on ``device`` (``cuda`` unless the caller says ``"cpu"``).
 Randomness comes from two generators seeded with ``seed``: one on the CPU
@@ -350,7 +354,70 @@ def run_few_shot(
     dev = resolve_device(device)
     split = _to_device(split, dev)
     host, draws = _generators(seed, dev)
-    clock = _StepClock(dev)
+    return _few_shot_pass(split, extractors, ssl_cfgs, cfg, ledger, host, draws, _StepClock(dev))
+
+
+def run_few_shot_finetune(
+    seed: int,
+    split: VerticalSplit,
+    extractors: Sequence[ExtractorSpec],
+    ssl_cfgs: Sequence[SSLConfig],
+    cfg: Optional[ProtocolConfig] = None,
+    finetune_iterations: int = 200,
+    device: DeviceLike = None,
+) -> VFLResult:
+    """Tab. 1's last row: :func:`run_few_shot` at ``seed``, draw for draw, as
+    pre-training, then ``baselines.run_vanilla`` finetuning of the trained
+    extractors and classifier for ``finetune_iterations`` at a tenth of the
+    learning rates, its schedule seeded by the next draw of the few-shot
+    pass's CPU generator. One ledger spans both stages. ``diagnostics``
+    holds the finetune's (``iterations``, ``losses``, ``final_loss``), the
+    few-shot pass's on top of them, its metric (``fewshot_metric``), and in
+    ``step_ms`` the few-shot steps then the finetune's as ``finetune_*``."""
+    from repro_torch.core import baselines  # deferred: baselines imports this module
+
+    cfg = cfg if cfg is not None else ProtocolConfig()
+    dev = resolve_device(device)
+    split = _to_device(split, dev)
+    host, draws = _generators(seed, dev)
+    few = _few_shot_pass(
+        split, extractors, ssl_cfgs, cfg, CommLedger(), host, draws, _StepClock(dev)
+    )
+    it_cfg = baselines.IterativeConfig(
+        iterations=finetune_iterations,
+        batch_size=cfg.batch_size,
+        client_lr=cfg.client_lr / 10,
+        server_lr=cfg.server_lr / 10,
+    )
+    res = baselines.run_vanilla(
+        seed_from(host),
+        split,
+        extractors,
+        ssl_cfgs,
+        it_cfg,
+        clients=few.clients,
+        server=few.server,
+        ledger=few.ledger,
+        device=dev,
+    )
+    step_ms = dict(few.diagnostics["step_ms"])
+    step_ms.update({f"finetune_{k}": v for k, v in res.diagnostics["step_ms"].items()})
+    res.diagnostics.update(few.diagnostics, fewshot_metric=few.metric, step_ms=step_ms)
+    return res
+
+
+def _few_shot_pass(
+    split: VerticalSplit,
+    extractors: Sequence[ExtractorSpec],
+    ssl_cfgs: Sequence[SSLConfig],
+    cfg: ProtocolConfig,
+    ledger: CommLedger,
+    host: torch.Generator,
+    draws: torch.Generator,
+    clock: _StepClock,
+) -> VFLResult:
+    """Alg. 2 on a split already on its device, drawing from the caller's
+    generators (see :func:`run_few_shot`)."""
     one, h_o = _one_shot_pass(split, extractors, ssl_cfgs, cfg, ledger, host, draws, clock)
     clients, server = one.clients, one.server
     diags = dict(one.diagnostics, one_shot_metric=one.metric)

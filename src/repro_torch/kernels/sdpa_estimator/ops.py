@@ -8,7 +8,9 @@ the reference op does) and checked; then
 * a CUDA tensor launches the hand-written kernel
   (``csrc/sdpa_estimator.cu``) on the current stream, or raises. There is no
   fallback: a build failure, a refused launch or an unsupported shape is an
-  error.
+  error. The kernel has no backward, so an input that requires grad under
+  grad is refused too (``core.estimator.sdpa_transform_differentiable`` is
+  Eq. 10 with autograd).
 
 The kernel reads its inputs by TMA through their batch and row strides, so
 a batch axis broadcast with ``expand`` (stride 0) reaches it without a
@@ -214,6 +216,11 @@ def sdpa_estimate_batched(
         return ref.sdpa_estimate_batched(h_u, h_o_a, h_o_b)
     if h_u.device.type != "cuda":
         raise ValueError(f"no SDPA route for device {h_u.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (h_u, h_o_a, h_o_b)):
+        raise NotImplementedError(
+            "the Eq. 10 kernel has no backward: call it without grad, or differentiate "
+            "through repro_torch.core.estimator.sdpa_transform_differentiable"
+        )
     return launch(h_u, h_o_a, h_o_b, device_plan(h_u, h_o_b))
 
 

@@ -2,7 +2,9 @@
 
 Counterparts of ``repro.optim``'s ``chain(clip_by_global_norm(c),
 sgd(lr, momentum=μ))``, the optimizer of every local-SSL session and server
-fit. Two details are the reference's, not PyTorch's:
+fit, and of its unclipped ``sgd(lr, momentum=μ)``, the optimizer of the
+iterative baselines (``max_norm=None``). Two details are the reference's,
+not PyTorch's:
 
 * the clip factor is ``min(1, c / (‖g‖ + 1e-12))``
   (``torch.nn.utils.clip_grad_norm_`` adds 1e-6);
@@ -12,7 +14,7 @@ fit. Two details are the reference's, not PyTorch's:
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -31,15 +33,16 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> None
 
 
 class ClippedSGD:
-    """Clip by global norm, then SGD with momentum, over a fixed parameter
-    list. ``step(grads)`` takes the gradients in parameter order."""
+    """Clip by global norm (unless ``max_norm`` is None), then SGD with
+    momentum, over a fixed parameter list. ``step(grads)`` takes the
+    gradients in parameter order."""
 
     def __init__(
         self,
         params: Sequence[torch.Tensor],
         lr: float,
         momentum: float = 0.9,
-        max_norm: float = 5.0,
+        max_norm: Optional[float] = 5.0,
     ) -> None:
         self.params: List[torch.Tensor] = list(params)
         self.lr, self.momentum, self.max_norm = lr, momentum, max_norm
@@ -48,7 +51,8 @@ class ClippedSGD:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         grads = [g.float() for g in grads]
-        clip_by_global_norm_(grads, self.max_norm)
+        if self.max_norm is not None:
+            clip_by_global_norm_(grads, self.max_norm)
         for p, m, g in zip(self.params, self.trace, grads):
             m.mul_(self.momentum).add_(g)
             p.add_((m * -self.lr).to(p.dtype))

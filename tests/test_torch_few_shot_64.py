@@ -1,7 +1,7 @@
 """The port's few-shot VFL (Alg. 2) end to end on ``hard/overlap-64``, by
 the rules and helpers of ``test_torch_few_shot.py``: the ledger equals the
-reference's event for event, and the AUC margins over the reference's
-``run_vanilla`` clear ``benchmarks/frontier_baseline.json``'s few-shot
+reference's event for event, and the AUC margins over the reference's and
+the port's ``run_vanilla`` clear ``benchmarks/frontier_baseline.json``'s few-shot
 limits; and the few-shot CLI runs on the CPU."""
 
 import pytest
@@ -11,6 +11,7 @@ from test_torch_few_shot import (  # noqa: F401 (one_torch_thread: an autouse fi
     check_ledger,
     check_margins,
     one_torch_thread,
+    port_vanilla_runs,
     scenario_runs,
 )
 
@@ -28,6 +29,10 @@ def test_ledger_equals_reference(runs):
 
 def test_few_shot_beats_vanilla_on_the_same_splits(runs):
     check_margins(runs, NAME)
+
+
+def test_few_shot_beats_the_ports_vanilla_on_the_same_splits(runs):
+    check_margins(runs, NAME, port_vanilla_runs(runs, NAME))
 
 
 def test_diagnostics(runs):

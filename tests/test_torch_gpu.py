@@ -20,8 +20,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 from repro_torch import scenarios  # noqa: E402
 from repro_torch.checkpoint import ExtractorSpec, init_artifact  # noqa: E402
-from repro_torch.core import clustering  # noqa: E402
-from repro_torch.core.protocol import ProtocolConfig, run_few_shot  # noqa: E402
+from repro_torch.core import baselines, clustering, estimator  # noqa: E402
+from repro_torch.core.protocol import (  # noqa: E402
+    ProtocolConfig,
+    run_few_shot,
+    run_few_shot_finetune,
+)
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
 from repro_torch.kernels.kmeans import ops as kops  # noqa: E402
@@ -202,6 +206,75 @@ def test_few_shot_step3p_launches_the_kernel_once_a_party(cuda):
     probs = res.diagnostics["fewshot_step3p"]["probs"]
     assert all(p.is_cuda and p.dtype == torch.float32 and p.shape == (1184,) for p in probs)
     assert 0.0 <= res.metric <= 1.0
+
+
+def test_sdpa_kernel_refuses_inputs_under_grad(cuda):
+    """The kernel has no backward: a CUDA input that requires grad is refused
+    under grad (the error names the differentiable route), and the same
+    inputs run under no_grad."""
+    q, a, b = (torch.randn(s, device=cuda) for s in ((64, 16), (32, 16), (32, 16)))
+    for i in range(3):
+        args = [q, a, b]
+        args[i] = args[i].clone().requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="sdpa_transform_differentiable"):
+            ops.sdpa_estimate(*args)
+        with torch.no_grad():
+            got = ops.sdpa_estimate(*args)
+        torch.testing.assert_close(got, ref.sdpa_estimate(q, a, b), atol=TOL, rtol=0)
+    assert not ops.sdpa_estimate(q, a, b).requires_grad  # no input needs grad: it launches
+
+
+def test_differentiable_eq10_on_the_card_matches_the_cpu(cuda):
+    """FedCVT's Eq. 10 (plain ops, TF32 off) and its three gradients on the
+    card against the CPU, at 1e-5."""
+    rng = np.random.default_rng(5)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in ((32, 16), (32, 16), (32, 16))]
+    w = torch.from_numpy(rng.standard_normal((32, 16)).astype(np.float32))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in arrays]
+        before = ops.LAUNCHES
+        out = estimator.sdpa_transform_differentiable(*ts)
+        grads = torch.autograd.grad((out * w.to(dev)).sum(), ts)
+        assert ops.LAUNCHES == before
+        outs.append([out.detach().cpu(), *(g.cpu() for g in grads)])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["run_vanilla", "run_fedcvt"])
+def test_baselines_on_the_card_launch_no_kernel(method, cuda):
+    """SplitNN and FedCVT at 20 iterations on hard/overlap-32: the CPU's
+    ledger, finite losses, and no kernel launch (FedCVT's Eq. 10 is
+    plain ops, for its backward)."""
+    spec = scenarios.HARD_OVERLAP_32
+    cfg = baselines.IterativeConfig(iterations=20)
+    fn = getattr(baselines, method)
+    bundle = scenarios.build(spec, seed=0, device="cpu")
+    cpu = fn(0, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cpu")
+    before, before_km = ops.LAUNCHES, kops.LAUNCHES
+    res = fn(0, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device=cuda)
+    assert (ops.LAUNCHES, kops.LAUNCHES) == (before, before_km)
+    assert [e.__dict__ for e in res.ledger.events] == [e.__dict__ for e in cpu.ledger.events]
+    assert res.clients[0].extractor.layers[0].weight.is_cuda
+    assert bool(torch.isfinite(res.diagnostics["losses"]).all()) and 0.0 <= res.metric <= 1.0
+
+
+def test_few_shot_finetune_launches_the_few_shot_kernels(cuda):
+    """Few-shot + finetune at 2 epochs: few-shot's 2 ``sdpa_estimator`` and
+    27 ``kmeans`` launches and none in the finetune; 1815808 bytes in 405
+    comm times."""
+    spec = scenarios.HARD_OVERLAP_32
+    bundle = scenarios.build(spec, seed=0, device=cuda)
+    cfg = ProtocolConfig(client_epochs=2, server_epochs=2)
+    before, before_km = ops.LAUNCHES, kops.LAUNCHES
+    res = run_few_shot_finetune(
+        0, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device=cuda
+    )
+    assert ops.LAUNCHES - before == 2
+    assert kops.LAUNCHES - before_km == cfg.kmeans_iters + 2
+    assert res.ledger.comm_times() == 405 and res.ledger.total_bytes() == 1815808
+    assert 0.0 <= res.diagnostics["fewshot_metric"] <= 1.0 and 0.0 <= res.metric <= 1.0
 
 
 def _unit(shape, device, seed, dtype=torch.float32):
