@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Drives ``repro_torch`` (never JAX, never the reference package) through its
-paths: training (one-shot, few-shot, the iterative baselines and few-shot +
-finetune), serving, and model-zoo serving. Phases, each of
+paths: training (one-shot, few-shot, the iterative baselines, few-shot +
+finetune, and the scenario catalog), serving, and model-zoo serving. Phases, each of
 which fails the run (nonzero exit, no result line) if it goes wrong:
 
 1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
@@ -17,7 +17,8 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    the library call's); and the Eq. 10 and decode-attention kernels under
    key-range plans other than the wrapper's, and the k-means kernel on
    both of its routes and under several centre-range plans, each timed and
-   held against a float64 plain version;
+   held against a float64 plain version; and the Eq. 10 kernel at the
+   catalog's new step ③' shapes (width 7 over stride-0 views, bf16 reps);
 3. one-shot A (the training path): Alg. 1 on the port's own
    ``hard/overlap-32`` data (two parties, MLP 20→64→16, N_o = 32, 80 client
    and 40 server epochs): 3 comm times, 12288 bytes, k-means purity > 0.5
@@ -52,6 +53,19 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    at its budgets and 200 finetune iterations: 1815808 bytes in 405 comm
    times, its few-shot pass's AUC equal to few-shot A's, AUC > 0.6; 2
    ``sdpa_estimator`` and 27 ``kmeans`` launches;
+9b. the scenario catalog: one-shot and few-shot through ``scenarios.build``
+   on the card, ``run_one_shot`` and ``run_few_shot`` at seed 0 and the
+   registered sizes and budgets on every non-fault scenario but
+   ``hard/overlap-32`` (17: the credit overlap sweep, feature skew, label
+   noise, 4 and 8 parties, the hard and padded equal-shape pairs, full
+   overlap, image halves and patches), each held to its ledger
+   (CATALOG_LEDGERS), 3 or 5 comm times and its bar (AUC > 0.6; an image
+   scenario's mean accuracy over seeds 0-7 above chance by two standard
+   errors; few-shot skipped on ``hard/overlap-64-eq``, which is
+   ``hard/overlap-64`` row for row); SplitNN beside the sweep at 400
+   iterations (Fig. 6/7: metric and byte ratio at each N_o); ③' against
+   the CPU's plain route at widths 7 and 3; ``hard/overlap-32`` with bf16
+   reps: 6144 and 93440 bytes, ③' within BF16_STEP3P_TOL;
 10. serving (K = 2): the model B trained, ragged requests through
    ``serve_traffic`` at capacity 1024, held against the unbatched
    ``predict_logits``;
@@ -72,7 +86,7 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    forward.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
-5-6, then 7-8, then 9, then 10-11, then 13) and read just after. Output ends
+5-6, then 7-8, then 9, then 9b, then 10-11, then 13) and read just after. Output ends
 with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -83,6 +97,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -224,6 +239,61 @@ BASELINE_LEDGERS = {
     "A": {"vanilla": (3276800, 800), "fedbcd": (655360, 160), "fedcvt": (6553600, 800)},
     "B": {"vanilla": (98304000, 3000), "fedbcd": (19660800, 600), "fedcvt": (196608000, 3000)},
 }
+# (one-shot, few-shot) ledger bytes of every non-fault catalog scenario at
+# its registered sizes, f32 reps: one-shot 3·K·N·rep·4 over the N aligned
+# rows (a padded split's capacity), few-shot 4·K·N·rep·4 + Σ_k N_u^k·(rep·4 + 4).
+# tests/test_torch_catalog_ledgers_*.py hold every entry against the
+# reference's ledgers; the [catalog] phase holds the card's runs to them.
+CATALOG_LEDGERS = {
+    "credit/feature-skew": (49152, 138432),
+    "credit/label-noise": (49152, 138432),
+    "credit/overlap-32": (12288, 95808),
+    "credit/overlap-64": (24576, 110016),
+    "credit/overlap-128": (49152, 138432),
+    "credit/overlap-256": (98304, 195264),
+    "credit/overlap-512": (196608, 310832),
+    "credit/overlap-1024": (393216, 621800),
+    "credit/overlap-2048": (786432, 1243600),
+    "credit/parties-4": (49152, 112768),
+    "credit/parties-8": (98304, 178304),
+    "edge/full-overlap": (307200, 409600),
+    "hard/overlap-32": (12288, 177408),
+    "hard/overlap-64": (24576, 191616),
+    "hard/overlap-32-eq": (24576, 191616),
+    "hard/overlap-64-eq": (24576, 191616),
+    "image/halves": (73728, 138432),
+    "image/patch-4": (147456, 236736),
+}
+# hard/overlap-32 with bf16 reps: half of every rep transfer, p̂ stays f32
+CATALOG_BF16_LEDGERS = {"hard/overlap-32": (6144, 93440)}
+# The [catalog] phase: one-shot and few-shot on every non-fault scenario at
+# seed 0 and its registered sizes and budgets, but hard/overlap-32 (which
+# [one-shot A] and [few-shot A] run in f32; here it runs with bf16 reps).
+CATALOG_RUN = [n for n in CATALOG_LEDGERS if n != "hard/overlap-32"]
+# Bars: a tabular run's AUC (the reference's bar for hard/*) at seed 0. An
+# image scenario's accuracy (4 classes, 100 test rows) cannot be told from
+# chance at one seed (the reference's own image/halves over seeds 0-7:
+# one-shot 0.27-0.44, few-shot 0.11-0.49), so each protocol's mean over
+# IMAGE_SEEDS is held above chance by two standard errors of a mean at
+# chance over those seeds' test rows: 0.25 + 2·√(0.25·0.75 / 800) = 0.2806.
+CATALOG_BARS = {"auc": 0.6}
+IMAGE_SEEDS = range(8)
+IMAGE_CHANCE = 0.25
+# Few-shot is not run on hard/overlap-64-eq: at capacity 64 = N_o it is
+# hard/overlap-64 row for row (an all-ones mask), whose few-shot the phase
+# runs; it saves 6080 ⑤' steps (about 20 s) of the phase.
+CATALOG_ONE_SHOT_ONLY = ("hard/overlap-64-eq",)
+# Scenarios whose step ③' is recomputed on the CPU's plain route: the
+# widest fused Eq. 10 launches (K − 1 = 7 and 3).
+CATALOG_STEP3P = ("credit/parties-8", "image/patch-4")
+# bf16 reps in ③': estimates and p̂ against the plain route on the same bf16
+# inputs within one bf16 rounding step of O(1) values (both upcast to f32).
+BF16_STEP3P_TOL = 3e-2
+# The new ③' shapes of the catalog, timed as [kernel] rows: credit/parties-8
+# (K − 1 = 7 estimates of 164 pool rows over N_o = 128 keys, rep 8, h_u and
+# H_oᴬ stride-0 views as the path passes them) and hard/overlap-32's with
+# bf16 reps.
+CATALOG_SDPA_SHAPES = [((7, 164, 128, 8, 8), torch.float32), ((1, 1184, 32, 16, 16), torch.bfloat16)]
 BASELINE_RUNNERS = (
     ("vanilla", baselines.run_vanilla),
     ("fedbcd", baselines.run_fedbcd),
@@ -367,14 +437,19 @@ def device_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def sdpa_bound_ms(b: int, nu: int, no: int, d: int, db: int) -> tuple:
+def sdpa_bound_ms(
+    b: int, nu: int, no: int, d: int, db: int, elem: int = 4, shared_qk: bool = False
+) -> tuple:
     """Least time for the kernel's work on an H100: the larger of compulsory
-    bytes (each input read once, the output written once) over the memory
-    rate and the arithmetic it does, the two products' FLOPs three times
-    over (3xTF32) at the dense TF32 rate. Also returns the same bound with
-    the products once at the f32 (non-tensor) rate, the bound of the earlier
-    f32-FMA design, so that older rows stay comparable."""
-    nbytes = 4 * b * (nu * d + no * d + no * db + nu * db)
+    bytes (each input read once at ``elem`` bytes an element, queries and
+    keys once for the whole batch when ``shared_qk`` (stride-0 views), the
+    f32 output written once) over the memory rate and the arithmetic it
+    does, the two products' FLOPs three times over (3xTF32) at the dense
+    TF32 rate. Also returns the same bound with the products once at the
+    f32 (non-tensor) rate, the bound of the earlier f32-FMA design, so that
+    older rows stay comparable."""
+    qk = (nu * d + no * d) * (1 if shared_qk else b)
+    nbytes = elem * (qk + b * no * db) + 4 * b * nu * db
     flops = 2 * b * nu * no * (d + db)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 3 * flops / H100_TF32_FLOPS
     fma_ms = max(t_bytes, flops / H100_F32_FLOPS) * 1e3
@@ -442,6 +517,55 @@ def phase_sdpa(gen) -> dict:
             f"fma_bound {row['fma_bound_ms']:.4g} ms"
         )
     return rows[0]  # the K = 2 partial-query launch shape
+
+
+def phase_sdpa_catalog(gen) -> list:
+    """The Eq. 10 kernel at the catalog's new step ③' shapes, with the
+    path's layout: the width-7 launch reads one h_u and one H_oᴬ through
+    stride-0 batch views; the bf16 launch takes bf16 reps (the wrapper
+    upcasts them). Kernel vs plain version and float64, timed beside
+    ``F.scaled_dot_product_attention`` on the same inputs."""
+    rows = []
+    for (b, nu, no, d, db), dtype in CATALOG_SDPA_SHAPES:
+        q = torch.randn(nu, d, generator=gen, device="cuda").to(dtype).expand(b, nu, d)
+        a = torch.randn(no, d, generator=gen, device="cuda").to(dtype).expand(b, no, d)
+        v = torch.randn(b, no, db, generator=gen, device="cuda").to(dtype)
+        got = ops.sdpa_estimate_batched(q, a, v)
+        want = ref.sdpa_estimate_batched(q, a, v)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err64 = (got.double() - _oracle64(q, a, v)).abs().max().item()
+        check(err <= KERNEL_TOL, f"kernel vs plain max|err| {err} at {(b, nu, no, d, db)}")
+        check(err64 <= F64_TOL, f"kernel vs f64 max|err| {err64} at {(b, nu, no, d, db)}")
+        plan = ops.device_plan(q, v)
+
+        def library():
+            return F.scaled_dot_product_attention(q, a, v)
+
+        row = {
+            "shape": [b, nu, no, d, db],
+            "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_err": err,
+            "splits": plan.splits,
+            "blocks": plan.blocks,
+            "ms": time_ms(lambda: ops.sdpa_estimate_batched(q, a, v)),
+            "plain_ms": time_ms(lambda: ref.sdpa_estimate_batched(q, a, v)),
+            "library_ms": time_ms(library),
+            "device_ms": device_ms(lambda: ops.sdpa_estimate_batched(q, a, v)),
+            "library_device_ms": device_ms(library),
+        }
+        bound = sdpa_bound_ms(b, nu, no, d, db, q.element_size(), shared_qk=b > 1)
+        row["bound_ms"], row["bound_by"], row["fma_bound_ms"] = bound
+        rows.append(row)
+        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
+        print(
+            f"[kernel] sdpa_estimator ③' catalog B={b} N_u={nu} N_o={no} d={d} d_b={db} "
+            f"{row['dtype']}{' (stride-0 h_u, H_oᴬ)' if b > 1 else ''}: {plan.splits} key "
+            f"range(s), {plan.blocks} blocks | max|err| {err:.3e} (vs f64 {err64:.3e}) | {times} "
+            f"| bound {row['bound_ms']:.4g} ms ({row['bound_by']}, 3xTF32) | fma_bound "
+            f"{row['fma_bound_ms']:.4g} ms"
+        )
+    return rows
 
 
 def _oracle64(q, a, v):
@@ -849,10 +973,10 @@ def phase_one_shot_b(line: str):
     return res.to_artifact(IMAGE_B.name, split), cfg.kmeans_iters + 2
 
 
-def check_step3p(res, what: str) -> str:
+def check_step3p(res, what: str, tol: float = KERNEL_TOL) -> str:
     """Step ③' of a few-shot run recomputed on the CPU's plain route from
-    the run's own reps and heads: each Eq. 10 estimate within KERNEL_TOL of
-    the kernel's, and the gate decisions equal except on near-ties (a
+    the run's own reps and heads: each Eq. 10 estimate and p̂ within ``tol``
+    of the card's, and the gate decisions equal except on near-ties (a
     head's top confidence within NEAR_GATE of t, or its top two class
     probabilities within NEAR_GATE). Returns the printed summary."""
     rec = res.diagnostics["fewshot_step3p"]
@@ -871,12 +995,15 @@ def check_step3p(res, what: str) -> str:
         p_plain = dispatch.fewshot_probs(cpu, k, h, h_o, t, ests)
         for e_plain, e_card in zip(ests, rec["estimates"][k]):
             check(e_card.is_cuda, f"{what}: step ③' ran off the card")
-            err = max(err, (e_card.cpu() - e_plain).abs().max().item())
+            check(e_card.shape == e_plain.shape, f"{what}: estimate shapes differ")
+            if e_plain.numel():  # an empty pool has nothing to estimate
+                err = max(err, (e_card.cpu() - e_plain).abs().max().item())
         parts = list(ests)
         parts.insert(k, h)
         near_k = torch.zeros(h.shape[0], dtype=torch.bool)
         with torch.no_grad():
-            for logits in (cpu.aux_classifiers[k](h), cpu.classifier(torch.cat(parts, -1))):
+            full = torch.cat([p.float() for p in parts], -1)
+            for logits in (cpu.aux_classifiers[k](h.float()), cpu.classifier(full)):
                 top = torch.softmax(logits, -1).topk(2, dim=-1).values
                 near_k |= (top[:, 0] - t).abs() <= NEAR_GATE
                 near_k |= top[:, 0] - top[:, 1] <= NEAR_GATE
@@ -888,8 +1015,8 @@ def check_step3p(res, what: str) -> str:
             prob_err = max(prob_err, (p_card.cpu() - p_plain)[both].abs().max().item())
         near += int(near_k.sum())
         differ += int(wrong.sum())
-    check(err <= KERNEL_TOL, f"{what}: step ③' estimates vs plain max|err| {err} > {KERNEL_TOL}")
-    check(prob_err <= KERNEL_TOL, f"{what}: p̂ vs plain max|err| {prob_err} > {KERNEL_TOL}")
+    check(err <= tol, f"{what}: step ③' estimates vs plain max|err| {err} > {tol}")
+    check(prob_err <= tol, f"{what}: p̂ vs plain max|err| {prob_err} > {tol}")
     return (
         f"③' vs plain route: estimates max|err| {err:.3e}, p̂ max|err| {prob_err:.3e}, gate "
         f"decisions differ on {differ} rows ({near} near-tie rows exempt)"
@@ -1129,6 +1256,172 @@ def phase_finetune_a(line: str, few_shot_auc: float) -> tuple:
     return len(bundle.split.aligned), cfg.kmeans_iters + 2
 
 
+def _budget_cfg(spec, **kw) -> ProtocolConfig:
+    return ProtocolConfig(
+        client_epochs=spec.budget("client_epochs", 20),
+        server_epochs=spec.budget("server_epochs", 50),
+        **kw,
+    )
+
+
+def image_bar(n_test: int) -> float:
+    """Chance plus two standard errors of a mean accuracy at chance over
+    IMAGE_SEEDS runs of ``n_test`` test rows each."""
+    n = len(IMAGE_SEEDS) * n_test
+    return IMAGE_CHANCE + 2 * (IMAGE_CHANCE * (1 - IMAGE_CHANCE) / n) ** 0.5
+
+
+def _catalog_run(runner, bundle, cfg, protocol: str, want_bytes: int, seed: int = SEED) -> tuple:
+    """One catalog run on the card, checked: the expected bytes, 3 or 5
+    comm times, a finite metric, a tabular AUC above its bar (an image
+    scenario's bar holds its mean over seeds: :func:`phase_catalog`).
+    Returns (result, its JSON row) and prints its line at seed 0."""
+    spec, split = bundle.spec, bundle.split
+    t0 = time.perf_counter()
+    res = runner(seed, split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    what = f"catalog {spec.name} {protocol}{' bf16' if cfg.rep_dtype == torch.bfloat16 else ''}"
+    times = 3 if protocol == "one-shot" else 5
+    got = (res.ledger.total_bytes(), res.ledger.comm_times())
+    check(got == (want_bytes, times), f"{what}: (bytes, comm times) {got}, not {(want_bytes, times)}")
+    check(math.isfinite(res.metric), f"{what}: {res.metric_name} {res.metric}")
+    if res.metric_name in CATALOG_BARS:
+        bar = CATALOG_BARS[res.metric_name]
+        check(res.metric > bar, f"{what}: {res.metric_name} {res.metric} not above {bar}")
+        held = f"bar > {bar}"
+    else:
+        held = f"seed {seed}; the bar holds the mean over seeds {IMAGE_SEEDS[0]}-{IMAGE_SEEDS[-1]}"
+    if seed != SEED:
+        return res, None
+    d, ms = res.diagnostics, res.diagnostics["step_ms"]
+    n = split.aligned[0].shape[0]
+    rows = f"N_o {n}" if spec.overlap_capacity is None else f"capacity {n}, N_o {spec.overlap}"
+    steps4 = sum(d["ssl_steps"])
+    fields = [
+        f"K {spec.num_parties}, {rows}, N_u {[u.shape[0] for u in split.unaligned]}",
+        f"{res.metric_name} {res.metric:.4f} ({held})",
+        f"{got[0]} bytes (expected {want_bytes}) in {got[1]} comm times (expected {times})",
+        f"④ {ms['4_local_ssl'] / steps4:.3f} ms a step ({steps4} steps)",
+    ]
+    if protocol == "few-shot":
+        steps5 = sum(d["fewshot_ssl_steps"])
+        fields.append(f"⑤' {ms['5p_local_ssl'] / steps5:.3f} ms a step ({steps5} steps)")
+        fields.append(
+            f"gate {_rates(d['fewshot_gate_rate'])} take {_rates(d['fewshot_take_rate'])}"
+        )
+    fields.append(f"wall {wall:.2f} s")
+    print(f"[catalog] {spec.name} {protocol}{' bf16' if 'bf16' in what else ''}: "
+          + " | ".join(fields))
+    row = {
+        "scenario": spec.name,
+        "protocol": protocol,
+        "rep_dtype": str(cfg.rep_dtype).removeprefix("torch."),
+        "metric_name": res.metric_name,
+        "metric": res.metric,
+        "bytes": got[0],
+        "comm_times": got[1],
+        "wall_s": wall,
+        "step_ms": ms,
+    }
+    return res, row
+
+
+def phase_catalog(line: str) -> dict:
+    """One-shot and few-shot (one-shot only on CATALOG_ONE_SHOT_ONLY) on
+    every scenario of CATALOG_RUN through ``scenarios.build(...,
+    device="cuda")``, ``run_one_shot`` and ``run_few_shot`` at seed 0 and the
+    registered sizes and budgets, each held to CATALOG_LEDGERS and
+    CATALOG_BARS; the image scenarios' few-shot also at the other
+    IMAGE_SEEDS, each protocol's mean accuracy held to :func:`image_bar`;
+    ③' against the CPU's plain route on CATALOG_STEP3P; SplitNN on the
+    credit sweep at its 400
+    iterations beside both (Fig. 6/7's comparison at each N_o); and
+    hard/overlap-32 with bf16 reps against CATALOG_BF16_LEDGERS, its ③'
+    within BF16_STEP3P_TOL. Returns the kernel launches it should have made,
+    each run's row and the sweep's rows."""
+    want = {"sdpa": 0, "kmeans": 0, "runs": [], "sweep": [], "image": []}
+
+    def count(split, cfg, few_shot: bool):
+        # ③: one batched search of kmeans_iters + 2 launches a run; few-shot's
+        # ③': one fused launch (width K − 1) a party whose pool is not empty
+        want["kmeans"] += cfg.kmeans_iters + 2
+        if few_shot:
+            want["sdpa"] += sum(1 for u in split.unaligned if u.shape[0] > 0)
+
+    for name in CATALOG_RUN:
+        bundle = scenarios.build(name, seed=SEED, device="cuda")
+        spec, cfg = bundle.spec, _budget_cfg(bundle.spec)
+        one, row1 = _catalog_run(run_one_shot, bundle, cfg, "one-shot", CATALOG_LEDGERS[name][0])
+        want["runs"].append(row1)
+        count(bundle.split, cfg, False)
+        if name in CATALOG_ONE_SHOT_ONLY:
+            continue
+        few, row2 = _catalog_run(run_few_shot, bundle, cfg, "few-shot", CATALOG_LEDGERS[name][1])
+        want["runs"].append(row2)
+        count(bundle.split, cfg, True)
+        if spec.modality == "image":
+            # few-shot at the other seeds: its one-shot pass is run_one_shot's
+            means = {"one-shot": [one.metric], "few-shot": [few.metric]}
+            for seed in IMAGE_SEEDS[1:]:
+                b = scenarios.build(name, seed=seed, device="cuda")
+                res, _ = _catalog_run(
+                    run_few_shot, b, cfg, "few-shot", CATALOG_LEDGERS[name][1], seed
+                )
+                means["one-shot"].append(res.diagnostics["one_shot_metric"])
+                means["few-shot"].append(res.metric)
+                count(b.split, cfg, True)
+            bar = image_bar(bundle.split.test_labels.shape[0])
+            for proto, accs in means.items():
+                mean = sum(accs) / len(accs)
+                check(mean > bar, f"catalog {name} {proto}: mean accuracy {mean} not above {bar}")
+                want["image"].append({"scenario": name, "protocol": proto, "accuracy": accs})
+                print(
+                    f"[catalog] {name} {proto} over seeds {IMAGE_SEEDS[0]}-{IMAGE_SEEDS[-1]}: "
+                    f"accuracy {_rates(accs)}, mean {mean:.4f} (bar > {bar:.4f}: chance "
+                    f"{IMAGE_CHANCE} + 2 standard errors)"
+                )
+        if name in CATALOG_STEP3P:
+            widths = sorted({len(e) for e in few.diagnostics["fewshot_step3p"]["estimates"]})
+            print(f"[catalog] {name} ③' (width {widths}) {check_step3p(few, name)}")
+        if name.startswith("credit/overlap-"):
+            it = baselines.IterativeConfig(iterations=spec.budget("iterations", 300))
+            van = baselines.run_vanilla(
+                SEED, bundle.split, bundle.extractors, bundle.ssl_cfgs, it, device="cuda"
+            )
+            got = (van.ledger.total_bytes(), van.ledger.comm_times())
+            check(got == BASELINE_LEDGERS["A"]["vanilla"], f"{name} vanilla: {got}")
+            check(van.metric > 0.5, f"{name} vanilla: AUC {van.metric}")
+            sweep = {"scenario": name, "overlap": spec.overlap, "vanilla": van.metric}
+            for proto, res in (("one_shot", one), ("few_shot", few)):
+                sweep[proto] = res.metric
+                sweep[f"{proto}_byte_ratio"] = got[0] / res.ledger.total_bytes()
+            want["sweep"].append(sweep)
+            print(
+                f"[catalog] Fig. 6/7 N_o {spec.overlap}: vanilla AUC {van.metric:.4f} ({it.iterations} "
+                f"iterations, {got[0]} bytes in {got[1]} comm times) | one-shot {one.metric:.4f} "
+                f"({one.metric - van.metric:+.4f}, {sweep['one_shot_byte_ratio']:.1f}x fewer bytes) "
+                f"| few-shot {few.metric:.4f} ({few.metric - van.metric:+.4f}, "
+                f"{sweep['few_shot_byte_ratio']:.1f}x fewer bytes)"
+            )
+        del one, few, bundle
+    for name, (one_b, few_b) in CATALOG_BF16_LEDGERS.items():
+        bundle = scenarios.build(name, seed=SEED, device="cuda")
+        cfg = _budget_cfg(bundle.spec, rep_dtype=torch.bfloat16)
+        _, row1 = _catalog_run(run_one_shot, bundle, cfg, "one-shot", one_b)
+        few, row2 = _catalog_run(run_few_shot, bundle, cfg, "few-shot", few_b)
+        want["runs"] += [row1, row2]
+        count(bundle.split, cfg, False)
+        count(bundle.split, cfg, True)
+        rec = few.diagnostics["fewshot_step3p"]
+        check(all(h.dtype == torch.bfloat16 for h in rec["h_u"] + rec["h_o"]), "bf16: reps")
+        check(all(p.dtype == torch.float32 for p in rec["probs"]), "bf16: p̂ is not f32")
+        step3p = check_step3p(few, f"{name} bf16", BF16_STEP3P_TOL)
+        print(f"[catalog] {name} bf16 ③' (bf16 h_u, H_o; tolerance {BF16_STEP3P_TOL}) {step3p}")
+    print(json.dumps({key: want[key] for key in ("runs", "sweep", "image")}))
+    return want
+
+
 def make_art(spec, shapes, gen):
     """A seeded artifact whose overlap reps are its extractors' outputs on
     N_O seeded aligned rows."""
@@ -1363,6 +1656,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sdpa_row = phase_sdpa(gen)
+    phase_sdpa_catalog(gen)
     phase_sdpa_plans(gen)
     kmeans_row = phase_kmeans(gen)
     phase_kmeans_plans(gen)
@@ -1442,6 +1736,26 @@ def main() -> int:
         f"launches {ft_km} (expected {km_ft}) in {finetune_s:.1f} s"
     )
 
+    # ---- the scenario catalog: counters from 0, read right after
+    torch.cuda.empty_cache()
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    t0 = time.time()
+    cat = phase_catalog(line)
+    torch.cuda.synchronize()
+    catalog_s = time.time() - t0
+    cat_sdpa, cat_km = ops.LAUNCHES, kops.LAUNCHES
+    check(cat_sdpa == cat["sdpa"], f"catalog: sdpa_estimator launched {cat_sdpa} times")
+    check(cat_km == cat["kmeans"], f"catalog: kmeans launched {cat_km} times")
+    check(rops.LAUNCHES == dops.LAUNCHES == 0, "a zoo kernel launched in the catalog")
+    print(
+        f"[path] catalog: sdpa_estimator launches {cat_sdpa} (expected {cat['sdpa']}: few-shot's "
+        f"③', one fused launch of width K − 1 a party with a non-empty pool), kmeans launches "
+        f"{cat_km} (expected {cat['kmeans']}: step ③, one batched search of "
+        f"{ProtocolConfig().kmeans_iters + 2} launches a run) over {len(cat['runs'])} runs in "
+        f"{catalog_s:.1f} s"
+    )
+    torch.cuda.empty_cache()
+
     cnn = ExtractorSpec(kind="cnn", rep_dim=128, widths=(32, 64, 128), blocks_per_stage=2)
     patches = make_art(cnn, [(16, 16, 3)] * 4, gen)
     torch.cuda.synchronize()
@@ -1480,7 +1794,8 @@ def main() -> int:
     print(
         f"[time] {time.time() - t_start:.1f} s from the build on; few-shot phases "
         f"{few_shot_s:.1f} s; baselines A {baselines_a_s:.1f} s, baselines B {baselines_b_s:.1f} "
-        f"s, few-shot + finetune A {finetune_s:.1f} s; the zoo's share: kernel phases "
+        f"s, few-shot + finetune A {finetune_s:.1f} s, catalog {catalog_s:.1f} s; the zoo's "
+        f"share: kernel phases "
         f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s"
     )
 
@@ -1498,14 +1813,14 @@ def main() -> int:
             "sdpa_estimator",
             "src/repro_torch/kernels/sdpa_estimator/csrc/sdpa_estimator.cu",
             "src/repro/kernels/sdpa_estimator/kernel.py:38",
-            launches + few_sdpa + ft_sdpa,
+            launches + few_sdpa + ft_sdpa + cat_sdpa,
             sdpa_row,
         ),
         entry(
             "kmeans",
             "src/repro_torch/kernels/kmeans/csrc/kmeans_assign.cu",
             "src/repro/kernels/kmeans/kernel.py:32",
-            km_launches + few_km + ft_km,
+            km_launches + few_km + ft_km + cat_km,
             kmeans_row,
         ),
         entry(

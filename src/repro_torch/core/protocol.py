@@ -229,11 +229,12 @@ def _one_shot_pass(
     purity = [cluster_purity(p, split.labels, num_classes) for p in pseudo]
     clock.lap("3_kmeans")
 
-    # ④ local SSL, one party after another
+    # ④ local SSL, one party after another; a padded split's mask keeps its
+    # duplicate rows out of the labeled loss
     hp = cfg.ssl_hparams()
     ssl_metrics = []
     for c, y_k, x_o, x_u in zip(clients, pseudo, split.aligned, split.unaligned):
-        task = ssl_task_for(c, x_o, y_k, x_u)
+        task = ssl_task_for(c, x_o, y_k, x_u, labeled_mask=split.aligned_mask)
         ssl_metrics.append(train_party_ssl(task, hp, seed_from(host), generator=draws))
     clock.lap("4_local_ssl")
 
@@ -308,12 +309,14 @@ def fewshot_task(
     pseudo_overlap: torch.Tensor,
     cfg: ProtocolConfig,
     generator: Optional[torch.Generator] = None,
+    aligned_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[PartyTask, torch.Tensor]:
     """One party's phase-⑤' SSL task and its take mask (N_u,) float32.
 
     The labeled set is the whole ``x_o ∘ x_u`` at capacity N_o + N_u with
-    the mask ``[1…1 ∘ take]``; the unlabeled set is the whole pool with the
-    mask ``1 − take``, so no row is in both. ``take`` keeps every gated row
+    the mask ``[aligned_mask ∘ take]`` (ones for the overlap rows when the
+    split has no mask); the unlabeled set is the whole pool with the mask
+    ``1 − take``, so no row is in both. ``take`` keeps every gated row
     (p̂ > 0, the paper's rule), or under ``cfg.fewshot_stochastic_gate`` is a
     Bernoulli(p̂) draw from the device ``generator``."""
     if cfg.fewshot_stochastic_gate:
@@ -322,7 +325,12 @@ def fewshot_task(
         take = (probs > 0).float()
     x_lab = torch.cat([x_o, x_u])
     y_lab = fewshot_phase5_labels(client, x_o, x_u, pseudo_overlap, cfg.fewshot_relabel_overlap)
-    lab_mask = torch.cat([torch.ones(x_o.shape[0], device=take.device), take])
+    o_mask = (
+        torch.ones(x_o.shape[0], device=take.device)
+        if aligned_mask is None
+        else aligned_mask.float()
+    )
+    lab_mask = torch.cat([o_mask, take])
     task = ssl_task_for(client, x_lab, y_lab, x_u, labeled_mask=lab_mask, unlabeled_mask=1.0 - take)
     return task, take
 
@@ -453,7 +461,7 @@ def _few_shot_pass(
     # ⑤' each party adds its gated rows to the labeled set and re-runs SSL
     hp = cfg.ssl_hparams()
     tasks = [
-        fewshot_task(c, x_o, x_u, p, y_o, cfg, draws)
+        fewshot_task(c, x_o, x_u, p, y_o, cfg, draws, split.aligned_mask)
         for c, x_o, x_u, p, y_o in zip(
             clients, split.aligned, split.unaligned, probs, diags["pseudo_labels"]
         )
@@ -498,4 +506,5 @@ def _to_device(split: VerticalSplit, dev: torch.device) -> VerticalSplit:
         test_labels=split.test_labels.to(dev),
         num_classes=split.num_classes,
         unaligned_labels=move(split.unaligned_labels),
+        aligned_mask=None if split.aligned_mask is None else split.aligned_mask.to(dev),
     )

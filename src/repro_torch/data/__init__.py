@@ -2,13 +2,19 @@
 the synthetic generators (counterpart of ``repro.data``)."""
 
 from repro_torch.data.loader import epoch_batches
-from repro_torch.data.synthetic import make_cluster_tabular, make_image_classification
+from repro_torch.data.synthetic import (
+    make_cluster_tabular,
+    make_image_classification,
+    make_tabular_credit,
+    tabular_credit_from_draws,
+)
 from repro_torch.data.vertical import (
     VerticalSplit,
     make_vfl_partition,
     split_features,
     split_from_numpy,
     split_image_halves,
+    split_image_patches,
 )
 
 __all__ = [
@@ -16,8 +22,11 @@ __all__ = [
     "epoch_batches",
     "make_cluster_tabular",
     "make_image_classification",
+    "make_tabular_credit",
     "make_vfl_partition",
     "split_features",
     "split_from_numpy",
     "split_image_halves",
+    "split_image_patches",
+    "tabular_credit_from_draws",
 ]

@@ -1,17 +1,22 @@
 """Structured synthetic datasets, drawn from a seeded ``torch.Generator``.
 
-Counterparts of ``repro.data.synthetic.make_cluster_tabular`` (the hardened
+Counterparts of ``repro.data.synthetic.make_tabular_credit`` (the
+UCI-credit-like ``credit/*`` task), ``make_cluster_tabular`` (the hardened
 ``hard/*`` task) and ``make_image_classification`` (CIFAR-like class
 templates plus noise), with the same formulas and defaults. PyTorch cannot
 replay JAX's random streams, so the values differ from the reference's for
 the same seed; shapes, label balance and class structure do not. Parity
 tests carry the reference's own data across instead
-(:func:`repro_torch.data.vertical.split_from_numpy`).
+(:func:`repro_torch.data.vertical.split_from_numpy`), or feed the
+deterministic part of a generator the reference's own draws
+(:func:`tabular_credit_from_draws`).
 """
 
 from __future__ import annotations
 
 from typing import Tuple
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +26,56 @@ from repro_torch.device import DeviceLike, resolve_device
 
 def _generator(seed: int, device: torch.device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def tabular_credit_from_draws(
+    latent: torch.Tensor,
+    mix: torch.Tensor,
+    w: torch.Tensor,
+    flip_u: torch.Tensor,
+    num_classes: int = 2,
+    label_noise: float = 0.05,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The deterministic part of :func:`make_tabular_credit`: features
+    ``latent @ (mix / √D + I/2)`` and a label from a logistic model over both
+    parties' blocks (``x @ w`` plus the cross-party term ``x₂·x₁₂``), cut at
+    the logits' quantiles, flipped where ``flip_u < label_noise``.
+
+    latent (N, D), mix (D, D) and w (D,) are standard normal draws, flip_u
+    (N,) uniform on [0, 1). The cuts interpolate linearly, as ``jnp.median``
+    and ``jnp.quantile`` do (``torch.median`` would take the lower middle)."""
+    d = mix.shape[0]
+    mix = mix / math.sqrt(d) + 0.5 * torch.eye(d, device=mix.device)
+    x = latent @ mix
+    logits = x @ w + 0.25 * (x[:, 2] * x[:, 12])
+    if num_classes == 2:
+        y = (logits > torch.quantile(logits, 0.5)).long()
+    else:
+        qs = torch.linspace(0, 1, num_classes + 1, device=x.device)[1:-1]
+        y = (logits[:, None] > torch.quantile(logits, qs)[None, :]).sum(1)
+    y = torch.where(flip_u < label_noise, (y + 1) % num_classes, y)
+    return x.float(), y
+
+
+def make_tabular_credit(
+    num_samples: int,
+    *,
+    seed: int = 0,
+    device: DeviceLike = None,
+    num_features: int = 23,
+    num_classes: int = 2,
+    label_noise: float = 0.05,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Correlated features whose label depends on features of BOTH parties'
+    blocks (the first 10 and the rest), as in the FATE split the paper uses.
+    Returns x (N, num_features) float32 and y (N,) int64."""
+    dev = resolve_device(device)
+    g = _generator(seed, dev)
+    latent = torch.randn(num_samples, num_features, generator=g, device=dev)
+    mix = torch.randn(num_features, num_features, generator=g, device=dev)
+    w = torch.randn(num_features, generator=g, device=dev)
+    flip_u = torch.rand(num_samples, generator=g, device=dev)
+    return tabular_credit_from_draws(latent, mix, w, flip_u, num_classes, label_noise)
 
 
 def make_cluster_tabular(

@@ -103,10 +103,11 @@ def launch_plan(b: int, nu: int, no: int, d: int, db: int, sms: int) -> Plan:
     and no merge, even where more ranges would be faster (``chip_smoke.py``'s
     ``[plan]`` rows time both); else the range length whose launch takes the fewest tile-times: waves of
     blocks (``blocks_per_sm`` resident on each SM) times the tiles a block
-    walks plus RANGE_COST_TILES, fewer ranges on a tie."""
+    walks plus RANGE_COST_TILES, fewer ranges on a tie. No query rows
+    (an empty private pool) make one range of no blocks: nothing launches."""
     tiles = -(-no // BN)
     row_blocks = b * -(-nu // BM) * -(-db // COLS)
-    if row_blocks >= sms:
+    if row_blocks == 0 or row_blocks >= sms:
         return Plan(1, tiles, row_blocks, sms)
     slots = sms * blocks_per_sm(d, db)
     best = None

@@ -1,41 +1,28 @@
 """Train few-shot VFL (Alg. 2) on a named scenario and print its result.
 
     PYTHONPATH=src python -m repro_torch.launch.few_shot --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.few_shot --scenario image/patch-4 --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.few_shot --scenario hard/overlap-64  # on the GPU
 
-The port's counterpart of ``examples/fewshot_tabular.py``: the scenario's
-data is drawn with the port's own generators, the run uses the scenario's
-training budgets, and the output is the few-shot metric beside its one-shot
-pass's, the Eq. 9 gate and take rates of each party, the per-step times, the
-comm times (5) and the communication ledger. Without ``--device cpu`` it
-runs on ``cuda`` and raises where there is no card.
+The port's counterpart of ``examples/fewshot_tabular.py``: any registered
+scenario (``--smoke``: its shrunk variant), its data drawn with the port's
+own generators, the run at the scenario's training budgets; the output is
+the few-shot metric beside its one-shot pass's, the Eq. 9 gate and take
+rates of each party, the per-step times, the comm times (5) and the
+communication ledger. A ``fault/*`` scenario with a fault set is refused.
+Without ``--device cpu`` it runs on ``cuda`` and raises where there is no
+card.
 """
 
 from __future__ import annotations
 
-import argparse
-
-from repro_torch import scenarios
-from repro_torch.core.protocol import ProtocolConfig, run_few_shot
+from repro_torch.core.protocol import run_few_shot
+from repro_torch.launch.one_shot import parse_scenario_args, scenario_run
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(
-        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
-    )
-    ap.add_argument(
-        "--scenario", default=scenarios.HARD_OVERLAP_32.name, choices=sorted(scenarios.CATALOG)
-    )
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
-
-    spec = scenarios.CATALOG[args.scenario]
-    bundle = scenarios.build(spec, seed=args.seed, device=args.device)
-    cfg = ProtocolConfig(
-        client_epochs=spec.budget("client_epochs", 20),
-        server_epochs=spec.budget("server_epochs", 50),
-    )
+    args = parse_scenario_args(__doc__, argv)
+    spec, bundle, cfg = scenario_run(args)
     res = run_few_shot(
         args.seed, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device=args.device
     )

@@ -1,40 +1,62 @@
 """Train one-shot VFL (Alg. 1) on a named scenario and print its result.
 
     PYTHONPATH=src python -m repro_torch.launch.one_shot --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.one_shot --scenario credit/parties-4 --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.one_shot --seed 1   # on the GPU
 
-The port's counterpart of ``examples/quickstart.py``: the scenario's data is
-drawn with the port's own generators, the run uses the scenario's training
-budgets, and the output is the metric, the step-③ k-means purity, the
-per-step times and the communication ledger. Without ``--device cpu`` it
-runs on ``cuda`` and raises where there is no card.
+The port's counterpart of ``examples/quickstart.py``: any registered
+scenario (``--smoke``: its shrunk variant), its data drawn with the port's
+own generators, the run at the scenario's training budgets; the output is
+the metric, the step-③ k-means purity, the per-step times and the
+communication ledger. A ``fault/*`` scenario with a fault set is refused:
+the port does not inject faults yet. Without ``--device cpu`` it runs on
+``cuda`` and raises where there is no card.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Optional, Sequence, Tuple
 
 from repro_torch import scenarios
 from repro_torch.core.protocol import ProtocolConfig, run_one_shot
 
 
-def main(argv=None) -> int:
+def parse_scenario_args(doc: str, argv: Optional[Sequence[str]]) -> argparse.Namespace:
+    """The training CLIs' arguments: scenario, seed, smoke, device."""
     ap = argparse.ArgumentParser(
-        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
+        description=doc, formatter_class=argparse.RawDescriptionHelpFormatter
     )
     ap.add_argument(
-        "--scenario", default=scenarios.HARD_OVERLAP_32.name, choices=sorted(scenarios.CATALOG)
+        "--scenario", default=scenarios.HARD_OVERLAP_32.name, choices=scenarios.names()
     )
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true", help="the scenario's shrunk variant")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    spec = scenarios.CATALOG[args.scenario]
-    bundle = scenarios.build(spec, seed=args.seed, device=args.device)
+
+def scenario_run(
+    args: argparse.Namespace,
+) -> Tuple[scenarios.ScenarioSpec, scenarios.ScenarioBundle, ProtocolConfig]:
+    """The scenario's bundle on ``args.device`` and its budgets as a
+    protocol config; a spec with a fault is refused."""
+    spec = scenarios.get(args.scenario)
+    if spec.fault is not None:
+        raise NotImplementedError(
+            f"{spec.name}: fault injection ({spec.fault.kind}) is not ported yet (ROADMAP #11)"
+        )
+    bundle = scenarios.build(spec, seed=args.seed, smoke=args.smoke, device=args.device)
     cfg = ProtocolConfig(
         client_epochs=spec.budget("client_epochs", 20),
         server_epochs=spec.budget("server_epochs", 50),
     )
+    return bundle.spec, bundle, cfg
+
+
+def main(argv=None) -> int:
+    args = parse_scenario_args(__doc__, argv)
+    spec, bundle, cfg = scenario_run(args)
     res = run_one_shot(
         args.seed, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device=args.device
     )

@@ -208,6 +208,58 @@ def test_few_shot_step3p_launches_the_kernel_once_a_party(cuda):
     assert 0.0 <= res.metric <= 1.0
 
 
+@pytest.mark.parametrize(
+    "name", ["credit/parties-8", "image/patch-4", "hard/overlap-32-eq", "edge/full-overlap"]
+)
+def test_catalog_few_shot_on_the_card(name, cuda):
+    """A catalog scenario at its smoke sizes and 2 epochs on the card: the
+    CPU's ledger event for event; step ③ one batched k-means search (27
+    launches) over the K parties; step ③' one fused Eq. 10 launch of width
+    K − 1 a party with a non-empty pool (none at full overlap), its
+    estimates and p̂ within 1e-4 of the CPU's plain route on the run's own
+    inputs, gate decisions equal outside near-ties."""
+    cfg = ProtocolConfig(client_epochs=2, server_epochs=2)
+    cpu = scenarios.build(name, seed=0, smoke=True, device="cpu")
+    want = run_few_shot(0, cpu.split, cpu.extractors, cpu.ssl_cfgs, cfg, device="cpu")
+    bundle = scenarios.build(name, seed=0, smoke=True, device=cuda)
+    before, before_km = ops.LAUNCHES, kops.LAUNCHES
+    res = run_few_shot(0, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device=cuda)
+    pools = [u.shape[0] for u in bundle.split.unaligned]
+    assert ops.LAUNCHES - before == sum(n > 0 for n in pools)
+    assert kops.LAUNCHES - before_km == cfg.kmeans_iters + 2
+    assert [e.__dict__ for e in res.ledger.events] == [e.__dict__ for e in want.ledger.events]
+    k = bundle.spec.num_parties
+    assert [len(e) for e in res.diagnostics["fewshot_step3p"]["estimates"]] == [k - 1] * k
+    chip_smoke.check_step3p(res, name)
+    assert 0.0 <= res.metric <= 1.0
+
+
+def test_bf16_few_shot_on_the_card(cuda):
+    """hard/overlap-32 with bf16 reps at 2 epochs: 93440 bytes (p̂ in f32),
+    2 Eq. 10 and 27 k-means launches, ③' within the bf16 tolerance of the
+    CPU's plain route on the same bf16 reps."""
+    bundle = scenarios.build("hard/overlap-32", seed=0, device=cuda)
+    cfg = ProtocolConfig(client_epochs=2, server_epochs=2, rep_dtype=torch.bfloat16)
+    before, before_km = ops.LAUNCHES, kops.LAUNCHES
+    res = run_few_shot(0, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device=cuda)
+    assert (ops.LAUNCHES - before, kops.LAUNCHES - before_km) == (2, cfg.kmeans_iters + 2)
+    assert res.ledger.total_bytes() == chip_smoke.CATALOG_BF16_LEDGERS["hard/overlap-32"][1]
+    rec = res.diagnostics["fewshot_step3p"]
+    assert all(h.dtype == torch.bfloat16 for h in rec["h_u"] + rec["h_o"])
+    chip_smoke.check_step3p(res, "bf16", chip_smoke.BF16_STEP3P_TOL)
+
+
+def test_kernel_takes_an_empty_query(cuda):
+    """An empty private pool (full overlap): no rows to estimate, nothing
+    launched, an empty f32 result."""
+    q = torch.zeros(3, 0, 16, device=cuda)
+    a, b = torch.randn(3, 800, 16, device=cuda), torch.randn(3, 800, 8, device=cuda)
+    before = ops.LAUNCHES
+    out = ops.sdpa_estimate_batched(q, a, b)
+    assert out.shape == (3, 0, 8) and out.dtype == torch.float32 and out.is_cuda
+    assert ops.LAUNCHES == before
+
+
 def test_sdpa_kernel_refuses_inputs_under_grad(cuda):
     """The kernel has no backward: a CUDA input that requires grad is refused
     under grad (the error names the differentiable route), and the same

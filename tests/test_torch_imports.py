@@ -32,6 +32,8 @@ def _imported_roots(path):
 def test_port_sources_import_no_jax_and_no_reference():
     files = _port_files()
     assert len(files) > 10
+    scenario_files = {f.name for f in files if f.parent == PORT / "scenarios"}
+    assert scenario_files == {"__init__.py", "registry.py", "catalog.py", "faults.py"}
     bad = [(f.name, m) for f in files for m in _imported_roots(f) if m in FORBIDDEN]
     assert bad == []
 

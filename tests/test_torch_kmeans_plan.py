@@ -4,10 +4,11 @@ The CUDA kernel (``kernels/kmeans/csrc/kmeans_assign.cu``) runs only on a
 card. What can be held here:
 
 * the plan (``ops.launch_plan``): at every ``chip_smoke.py`` shape, every
-  shape of the clustering tests and the edges N = 1, 63, 64, 65; C = 1, 16,
-  17, 1000; d = 1, 3, 77, 1024, its blocks visit each (row, centre) pair of
-  each batch entry exactly once, by the kernel's own counting; the training
-  path's shapes take the rows route in one launch (no merge), the large C·d
+  shape of the clustering tests, every step-③ launch of the scenario
+  catalog and the edges N = 1, 63, 64, 65; C = 1, 16, 17, 1000; d = 1, 3,
+  77, 1024, its blocks visit each (row, centre) pair of each batch entry
+  exactly once, by the kernel's own counting; the training path's shapes
+  (the catalog's included) take the rows route in one launch (no merge), the large C·d
   shape the tile route with at least a block an SM; shared memory stays
   within what an H100 block may take;
 * that loading the library checks this module's copy of the kernel's
@@ -38,6 +39,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from repro_torch import scenarios  # noqa: E402
+from repro_torch.core.protocol import KMEANS_RESTARTS  # noqa: E402
 from repro_torch.kernels.kmeans import ops  # noqa: E402
 
 H100_SMS = 132
@@ -57,7 +60,26 @@ EDGE_SHAPES = [
     (2, n, d, c)
     for n, c, d in itertools.product((1, 63, 64, 65), (1, 16, 17, 1000), (1, 3, 77, 1024))
 ]
-ALL_SHAPES = list(dict.fromkeys(chip_smoke.KMEANS_SHAPES + CLUSTERING_SHAPES + EDGE_SHAPES))
+
+
+def _catalog_shapes():
+    """Step ③'s launches on every catalog scenario at its registered sizes,
+    as (B, N, d, C): the Lloyd and inertia launches over K·R entries and the
+    final one over K, N the aligned rows (a padded split's capacity), d the
+    rep width, C the classes."""
+    out = []
+    for name in scenarios.names():
+        spec = scenarios.get(name)
+        n = spec.overlap_capacity or spec.overlap
+        c = dict(spec.gen_params).get("num_classes", 2)
+        out += [(k, n, spec.rep_dim, c) for k in (spec.num_parties * KMEANS_RESTARTS, spec.num_parties)]
+    return list(dict.fromkeys(out))
+
+
+CATALOG_SHAPES = _catalog_shapes()
+ALL_SHAPES = list(
+    dict.fromkeys(chip_smoke.KMEANS_SHAPES + CLUSTERING_SHAPES + EDGE_SHAPES + CATALOG_SHAPES)
+)
 
 
 @pytest.mark.parametrize("elem", [4, 2], ids=["f32", "bf16"])
@@ -97,6 +119,22 @@ def test_path_shapes_take_the_rows_route_in_one_launch():
     # the Lloyd launch: a block an SM at two rows a lane group
     lloyd = ops.launch_plan(8, 2048, 10, 128, 4, H100_SMS)
     assert lloyd.blocks >= H100_SMS and lloyd.group_rows == 2
+
+
+@pytest.mark.parametrize("shape", CATALOG_SHAPES, ids=str)
+def test_catalog_shapes_take_the_rows_route_in_one_launch(shape):
+    """The catalog's step-③ launches, up to 8 parties' 32 stacked entries
+    (credit/parties-8: rep 8) and N = 2048 (credit/overlap-2048): the rows
+    route, one launch, no merge, in both element types."""
+    b, n, d, c = shape
+    for elem in (4, 2):
+        plan = ops.launch_plan(b, n, c, d, elem, H100_SMS)
+        assert plan.route == "rows" and plan.splits == 1
+
+
+def test_catalog_shapes_cover_the_widest_stack():
+    assert (32, 128, 8, 2) in CATALOG_SHAPES and (8, 2048, 16, 2) in CATALOG_SHAPES
+    assert (16, 96, 32, 4) in CATALOG_SHAPES and (8, 64, 16, 2) in CATALOG_SHAPES
 
 
 def test_large_centre_sets_take_the_tile_route_across_the_card():

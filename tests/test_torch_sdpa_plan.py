@@ -32,6 +32,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from repro_torch import scenarios  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
 
 H100_SMS = 132
@@ -51,7 +52,30 @@ EDGE_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("shape", chip_smoke.SHAPES + EDGE_SHAPES, ids=str)
+
+
+def _catalog_shapes():
+    """Few-shot step ③''s launch on every catalog scenario at its registered
+    sizes, as (B, N_u, N_o, d, d_b): a party's K − 1 estimates of its pool
+    rows over the N_o keys (a padded split's capacity), rep d. The pool
+    sizes follow make_vfl_partition: 20 % test rows, the aligned block,
+    the rest dealt evenly (0 at full overlap)."""
+    out = []
+    for name in scenarios.names():
+        spec = scenarios.get(name)
+        n_o = spec.overlap_capacity or spec.overlap
+        rest = spec.num_samples - int(spec.num_samples * 0.2)
+        k = spec.num_parties
+        out.append((k - 1, (rest - n_o) // k, n_o, spec.rep_dim, spec.rep_dim))
+    return list(dict.fromkeys(out))
+
+
+CATALOG_SHAPES = _catalog_shapes()
+
+
+@pytest.mark.parametrize(
+    "shape", chip_smoke.SHAPES + EDGE_SHAPES + CATALOG_SHAPES, ids=str
+)
 def test_plan_covers_every_key_once(shape):
     b, nu, no, d, db = shape
     plan = ops.launch_plan(b, nu, no, d, db, H100_SMS)
@@ -77,6 +101,33 @@ def test_plan_fills_the_card_at_serving_and_keeps_one_range_at_step3():
     assert ops.launch_plan(*STEP3_FEW_SHOT, H100_SMS).splits == 1
     # K = 4: three estimates a launch
     assert ops.launch_plan(3, 1024, 2048, 128, 128, H100_SMS).blocks >= H100_SMS
+
+
+def test_catalog_shapes_include_the_widest_launch_and_an_empty_pool():
+    assert (7, 164, 128, 8, 8) in CATALOG_SHAPES  # credit/parties-8
+    assert (3, 76, 96, 32, 32) in CATALOG_SHAPES  # image/patch-4
+    assert (1, 0, 800, 16, 16) in CATALOG_SHAPES  # edge/full-overlap
+    assert [s for s, _ in chip_smoke.CATALOG_SDPA_SHAPES] == [
+        (7, 164, 128, 8, 8), (1, 1184, 32, 16, 16)
+    ]
+    empty = ops.launch_plan(1, 0, 800, 16, 16, H100_SMS)
+    assert empty.blocks == 0 and empty.splits == 1  # nothing to launch
+
+
+@pytest.mark.parametrize("shape", [(7, 164, 128, 8, 8), (3, 76, 96, 32, 32)], ids=str)
+def test_fused_step3p_views_reach_the_kernel_without_a_copy(shape):
+    """③' broadcasts h_u and H_oᴬ over the K − 1 estimates as stride-0
+    views and stacks the value matrices: TMA reads all three in place (the
+    batch stride 0 and rows of d floats, a multiple of 4, pass the wrapper's
+    rule), and the wrapper's checks accept them."""
+    b, nu, no, d, db = shape
+    h_u, h_o = torch.randn(nu, d), torch.randn(no, d)
+    q, a = h_u.expand(b, nu, d), h_o.expand(b, no, d)
+    v = torch.stack([torch.randn(no, db) for _ in range(b)])
+    ops._check(q, a, v)
+    for t in (q, a, v):
+        assert ops._tma_view(t) is t
+    assert ops._strides(q) == (0, d) and ops._strides(a) == (0, d)
 
 
 class _FakeLibrary:

@@ -145,11 +145,22 @@ def test_partition_equals_reference(kind):
 
 
 def test_split_conversion_refuses_padded_overlap():
+    """A padded (``overlap_capacity``) split converts with its rows in the
+    reference's order and its validity mask, float32: 10 real rows, then 6
+    cyclic duplicates under zeros. The port's own partition gives the same."""
     x = jnp.asarray(np.random.default_rng(0).standard_normal((100, 4)), jnp.float32)
     y = jnp.asarray(np.arange(100) % 2)
     ref = jvert.make_vfl_partition(x, y, 10, seed=0, overlap_capacity=16)
-    with pytest.raises(ValueError, match="padded"):
-        tvert.split_from_numpy(ref, device="cpu")
+    got = tvert.split_from_numpy(ref, device="cpu")
+    assert got.aligned_mask.dtype == torch.float32
+    np.testing.assert_array_equal(got.aligned_mask.numpy(), [1.0] * 10 + [0.0] * 6)
+    np.testing.assert_array_equal(got.aligned[0].numpy(), np.asarray(ref.aligned[0]))
+    own = tvert.make_vfl_partition(
+        torch.from_numpy(np.asarray(x)), torch.from_numpy(np.asarray(y)), 10, seed=0,
+        overlap_capacity=16,
+    )
+    assert torch.equal(own.aligned_mask, got.aligned_mask)
+    assert torch.equal(own.aligned[1], got.aligned[1])
 
 
 def test_synthetic_generators_shapes_and_balance():
