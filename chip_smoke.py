@@ -4,7 +4,8 @@
 
 Drives ``repro_torch`` (never JAX, never the reference package) through its
 paths: training (one-shot, few-shot, the iterative baselines, few-shot +
-finetune, and the scenario catalog), serving, and model-zoo serving. Phases, each of
+finetune, fault injection, and the scenario catalog), serving, and
+model-zoo serving. Phases, each of
 which fails the run (nonzero exit, no result line) if it goes wrong:
 
 1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
@@ -18,7 +19,8 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    key-range plans other than the wrapper's, and the k-means kernel on
    both of its routes and under several centre-range plans, each timed and
    held against a float64 plain version; and the Eq. 10 kernel at the
-   catalog's new step ③' shapes (width 7 over stride-0 views, bf16 reps);
+   catalog's new step ③' shapes (width 7 over stride-0 views, bf16 reps)
+   and at the fault path's (⑤ / ⑥' reconstruction, degraded evaluation);
 3. one-shot A (the training path): Alg. 1 on the port's own
    ``hard/overlap-32`` data (two parties, MLP 20→64→16, N_o = 32, 80 client
    and 40 server epochs): 3 comm times, 12288 bytes, k-means purity > 0.5
@@ -53,6 +55,19 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    at its budgets and 200 finetune iterations: 1815808 bytes in 405 comm
    times, its few-shot pass's AUC equal to few-shot A's, AUC > 0.6; 2
    ``sdpa_estimator`` and 27 ``kmeans`` launches;
+9a. faults: the nine ``fault/*`` members (one 4-party condition; dropouts
+   of party 1 at four stages, a straggler, dp noise at σ 0.1 and 0.5, a
+   frozen party, the fault-free twin) through ``scenarios.build`` on the
+   card and the runners' ``fault`` argument at their sizes and budgets:
+   one-shot at seeds 0-3, held to the reference gate's rule
+   (``fault_families`` in ``benchmarks/frontier_baseline.json``: the twin's
+   mean AUC > 0.6, every member's mean at most ``max_oneshot_drop`` below
+   it, 3 survivors on a dropout, 4 elsewhere); few-shot at seed 0 (finite,
+   its Δ against the twin printed); SplitNN, FedBCD and FedCVT on the twin
+   and the four dropouts at 200 iterations (retry bytes in the ledger);
+   every ledger equal to FAULT_LEDGERS; every Eq. 10 reconstruction (⑤,
+   ⑥', the evaluation) within KERNEL_TOL of the CPU's plain route on the
+   run's own inputs;
 9b. the scenario catalog: one-shot and few-shot through ``scenarios.build``
    on the card, ``run_one_shot`` and ``run_few_shot`` at seed 0 and the
    registered sizes and budgets on every non-fault scenario but
@@ -86,7 +101,8 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    forward.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
-5-6, then 7-8, then 9, then 9b, then 10-11, then 13) and read just after. Output ends
+5-6, then 7-8, then 9, then 9a, then 9b, then 10-11, then 13) and read just
+after. Output ends
 with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -113,7 +129,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import scenarios  # noqa: E402
 from repro_torch.checkpoint import ExtractorSpec, init_artifact  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import baselines  # noqa: E402
+from repro_torch.core import baselines, estimator  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
     KMEANS_RESTARTS,
     ProtocolConfig,
@@ -294,6 +310,49 @@ BF16_STEP3P_TOL = 3e-2
 # H_oᴬ stride-0 views as the path passes them) and hard/overlap-32's with
 # bf16 reps.
 CATALOG_SDPA_SHAPES = [((7, 164, 128, 8, 8), torch.float32), ((1, 1184, 32, 16, 16), torch.bfloat16)]
+# The fault/* family: one 4-party hard condition (N_o = 32, 592 pool rows a
+# party, 600 test rows, rep 16, 20 client / 30 server epochs, 200
+# iterations) under nine fault treatments, fault/none its fault-free twin.
+FAULT_NAMES = [n for n in scenarios.names() if n.startswith("fault/")]
+FAULT_BASELINE = "fault/none"
+# The reference gate's rule for the family (fault_families in
+# benchmarks/frontier_baseline.json): one-shot means over seeds 0-3, the
+# fault-free twin's above FAULT_NONE_BAR (the reference's AUC bar), every
+# member's at most max_oneshot_drop below it.
+FAULT_SEEDS = range(4)
+FAULT_NONE_BAR = 0.6
+FAULT_GATE_FILE = os.path.join(ROOT, "benchmarks", "frontier_baseline.json")
+# The iterative baselines run on the fault-free twin and the four dropouts.
+FAULT_ITERATIVE = [FAULT_BASELINE] + [n for n in FAULT_NAMES if "/dropout-" in n]
+# (bytes, comm times) of each member: one-shot and few-shot (independent of
+# the budgets), the baselines at 200 iterations (FedBCD: 40 rounds of Q = 5).
+# A dropped party's missing uploads are not on the wire; a stalled iterative
+# loop stops at its stage's share of the steps, then spends 3 retry rounds
+# (each survivor's batch up, 4 bytes down to the dropped party).
+# tests/test_torch_fault_ledgers_*.py hold every entry against the reference.
+FAULT_LEDGERS = {
+    "fault/dp-sigma-0.1": {"one-shot": (24576, 3), "few-shot": (193792, 5),
+                           "vanilla": (3276800, 400), "fedbcd": (655360, 80), "fedcvt": (6553600, 400)},
+    "fault/dp-sigma-0.5": {"one-shot": (24576, 3), "few-shot": (193792, 5),
+                           "vanilla": (3276800, 400), "fedbcd": (655360, 80), "fedcvt": (6553600, 400)},
+    "fault/dropout-post-ssl": {"one-shot": (22528, 3), "few-shot": (149440, 5),
+                               "vanilla": (1656844, 203), "fedbcd": (346124, 43), "fedcvt": (3313676, 203)},
+    "fault/dropout-pre-round2": {"one-shot": (24576, 3), "few-shot": (151488, 5),
+                                 "vanilla": (2476044, 303), "fedbcd": (509964, 63), "fedcvt": (4952076, 303)},
+    "fault/dropout-pre-ssl": {"one-shot": (20480, 3), "few-shot": (147392, 5),
+                              "vanilla": (837644, 103), "fedbcd": (182284, 23), "fedcvt": (1675276, 103)},
+    "fault/dropout-pre-upload": {"one-shot": (18432, 3), "few-shot": (145344, 5),
+                                 "vanilla": (18444, 3), "fedbcd": (18444, 3), "fedcvt": (36876, 3)},
+    "fault/none": {"one-shot": (24576, 3), "few-shot": (193792, 5),
+                   "vanilla": (3276800, 400), "fedbcd": (655360, 80), "fedcvt": (6553600, 400)},
+    "fault/rep-only": {"one-shot": (24576, 3), "few-shot": (193792, 5),
+                       "vanilla": (3276800, 400), "fedbcd": (655360, 80), "fedcvt": (6553600, 400)},
+    "fault/straggler-half": {"one-shot": (24576, 3), "few-shot": (193792, 5),
+                             "vanilla": (3276800, 400), "fedbcd": (655360, 80), "fedcvt": (6553600, 400)},
+}
+# The Eq. 10 shapes the fault path adds: ⑤ / ⑥' reconstruction of a dropped
+# party's 32 overlap rows, and the degraded evaluation's 600 test rows.
+FAULT_SDPA_SHAPES = [((1, 32, 32, 16, 16), torch.float32), ((1, 600, 32, 16, 16), torch.float32)]
 BASELINE_RUNNERS = (
     ("vanilla", baselines.run_vanilla),
     ("fedbcd", baselines.run_fedbcd),
@@ -519,14 +578,15 @@ def phase_sdpa(gen) -> dict:
     return rows[0]  # the K = 2 partial-query launch shape
 
 
-def phase_sdpa_catalog(gen) -> list:
-    """The Eq. 10 kernel at the catalog's new step ③' shapes, with the
-    path's layout: the width-7 launch reads one h_u and one H_oᴬ through
-    stride-0 batch views; the bf16 launch takes bf16 reps (the wrapper
-    upcasts them). Kernel vs plain version and float64, timed beside
-    ``F.scaled_dot_product_attention`` on the same inputs."""
+def phase_sdpa_extra(gen, shapes: list, label: str) -> list:
+    """The Eq. 10 kernel at a path's further ``shapes`` ((B, N_u, N_o, d,
+    d_b), dtype), with the path's layout: a launch of width B > 1 reads one
+    h_u and one H_oᴬ through stride-0 batch views (the catalog's ③'); bf16
+    reps reach the wrapper as bf16 (it upcasts them). Kernel vs plain
+    version and float64, timed beside ``F.scaled_dot_product_attention`` on
+    the same inputs."""
     rows = []
-    for (b, nu, no, d, db), dtype in CATALOG_SDPA_SHAPES:
+    for (b, nu, no, d, db), dtype in shapes:
         q = torch.randn(nu, d, generator=gen, device="cuda").to(dtype).expand(b, nu, d)
         a = torch.randn(no, d, generator=gen, device="cuda").to(dtype).expand(b, no, d)
         v = torch.randn(b, no, db, generator=gen, device="cuda").to(dtype)
@@ -559,7 +619,7 @@ def phase_sdpa_catalog(gen) -> list:
         rows.append(row)
         times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
         print(
-            f"[kernel] sdpa_estimator ③' catalog B={b} N_u={nu} N_o={no} d={d} d_b={db} "
+            f"[kernel] sdpa_estimator {label} B={b} N_u={nu} N_o={no} d={d} d_b={db} "
             f"{row['dtype']}{' (stride-0 h_u, H_oᴬ)' if b > 1 else ''}: {plan.splits} key "
             f"range(s), {plan.blocks} blocks | max|err| {err:.3e} (vs f64 {err64:.3e}) | {times} "
             f"| bound {row['bound_ms']:.4g} ms ({row['bound_by']}, 3xTF32) | fma_bound "
@@ -1422,6 +1482,194 @@ def phase_catalog(line: str) -> dict:
     return want
 
 
+def fault_launches(fault, num_parties: int, pools: list, few_shot: bool) -> int:
+    """The Eq. 10 launches a fault/* run should make: one a party the fault
+    drops at ⑤ and at the evaluation (and, few-shot, at ⑥' and its own
+    evaluation), plus few-shot's ③', one a party with a non-empty pool (a
+    dropped party's ③' still runs; only its p̂ goes nowhere)."""
+    if fault is None:
+        dropped = {point: 0 for point in (2, 3, 4)}
+    else:
+        dropped = {point: sum(fault.drops(k, point) for k in range(num_parties)) for point in (2, 3, 4)}
+    one_shot = dropped[2] + dropped[4]  # POINT_UPLOAD2, POINT_EVAL
+    if not few_shot:
+        return one_shot
+    return one_shot + sum(1 for n in pools if n > 0) + dropped[3] + dropped[4]
+
+
+def check_reconstructions(res, what: str) -> tuple:
+    """Every Eq. 10 reconstruction of a faulted run recomputed on the CPU's
+    plain route from the run's own inputs: each within KERNEL_TOL of the
+    card's. Returns (max |err|, the protocol points it covered)."""
+    err, points = 0.0, []
+    for rec in res.diagnostics.get("fault_reconstruct", []):
+        est = rec["estimate"]
+        check(est.is_cuda, f"{what}: a reconstruction ran off the card")
+        cpu = [rec[k].cpu() for k in ("query", "keys", "values")]
+        want = estimator.sdpa_transform_batched(*(t[None] for t in cpu))[0]
+        check(bool(torch.isfinite(est).all()), f"{what}: a reconstruction is not finite")
+        err = max(err, (est.cpu() - want).abs().max().item())
+        points.append(rec["point"])
+    check(err <= KERNEL_TOL, f"{what}: reconstruction vs plain max|err| {err} > {KERNEL_TOL}")
+    return err, points
+
+
+def _fault_run(runner, name: str, seed: int, protocol: str) -> tuple:
+    """One fault/* run of ``protocol`` on the card at the member's sizes and
+    budgets, held to FAULT_LEDGERS, a finite metric, its survivors (K − 1
+    under a dropout, else K) and its reconstructions. Returns (the result,
+    the Eq. 10 launches it should have made, its wall seconds)."""
+    bundle = scenarios.build(name, seed=seed, device="cuda")
+    spec, split = bundle.spec, bundle.split
+    cfg = _budget_cfg(spec)
+    t0 = time.perf_counter()
+    res = runner(seed, split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda", fault=spec.fault)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    what = f"faults {name} {protocol} seed {seed}"
+    got = (res.ledger.total_bytes(), res.ledger.comm_times())
+    want = FAULT_LEDGERS[name][protocol]
+    check(got == want, f"{what}: (bytes, comm times) {got}, not {want}")
+    check(math.isfinite(res.metric), f"{what}: {res.metric_name} {res.metric}")
+    d = res.diagnostics
+    k = spec.num_parties
+    survived = d.get("parties_survived", k)
+    check(survived == (k - 1 if "/dropout-" in name else k), f"{what}: {survived} parties survived")
+    check((spec.fault is None) == ("fault_kind" not in d), f"{what}: fault diagnostics")
+    pools = [u.shape[0] for u in split.unaligned]
+    launches = fault_launches(spec.fault, k, pools, protocol == "few-shot")
+    eq10 = launches - (sum(1 for n in pools if n > 0) if protocol == "few-shot" else 0)
+    got_eq10 = len(d.get("fault_reconstruct", []))
+    check(got_eq10 == eq10, f"{what}: {got_eq10} reconstructions, expected {eq10}")
+    return res, launches, wall
+
+
+def phase_faults(line: str) -> dict:
+    """The fault/* family on the card through ``scenarios.build(...,
+    device="cuda")`` and the runners' ``fault`` argument: one-shot on every
+    member at FAULT_SEEDS (the reference gate's rule on the means), few-shot
+    on every member at seed 0 (its Δ against the fault-free twin), and
+    SplitNN, FedBCD and FedCVT on FAULT_ITERATIVE at the members' 200
+    iterations (retry bytes in the ledger). Every ledger equals
+    FAULT_LEDGERS and every Eq. 10 reconstruction its CPU plain-route
+    recomputation. Returns the kernel launches the phase should have made
+    and its rows."""
+    with open(FAULT_GATE_FILE) as f:
+        gate = json.load(f)["fault_families"]["fault"]
+    check(gate["baseline_scenario"] == FAULT_BASELINE, f"fault gate baseline {gate}")
+    check(sorted(gate["required"]) == sorted(FAULT_NAMES), f"fault gate members {gate['required']}")
+    max_drop = gate["max_oneshot_drop"]
+    out = {"sdpa": 0, "kmeans": 0, "one_shot": {}, "few_shot": {}, "iterative": [], "points": set()}
+    recon_err = 0.0
+    for name in FAULT_NAMES:
+        metrics, walls = [], []
+        for seed in FAULT_SEEDS:
+            res, launches, wall = _fault_run(run_one_shot, name, seed, "one-shot")
+            err, points = check_reconstructions(res, f"{name} one-shot seed {seed}")
+            recon_err = max(recon_err, err)
+            out["points"].update(points)
+            out["sdpa"] += launches
+            out["kmeans"] += res.cfg.kmeans_iters + 2
+            metrics.append(res.metric)
+            walls.append(wall)
+        out["one_shot"][name] = metrics
+        d = res.diagnostics
+        print(
+            f"[faults] {name} one-shot: {res.metric_name} over seeds {FAULT_SEEDS[0]}-"
+            f"{FAULT_SEEDS[-1]} {_rates(metrics)}, mean {sum(metrics) / len(metrics):.4f} | "
+            f"{res.ledger.total_bytes()} bytes in {res.ledger.comm_times()} comm times (expected "
+            f"{FAULT_LEDGERS[name]['one-shot']}) | survived {d.get('parties_survived', 4)} | "
+            f"{d.get('fault_kind', 'none')} {d.get('fault_stage', '')} | ④ "
+            f"{d['step_ms']['4_local_ssl'] / sum(d['ssl_steps']):.3f} ms a step | wall "
+            f"{sum(walls) / len(walls):.2f} s a run"
+        )
+    none_mean = sum(out["one_shot"][FAULT_BASELINE]) / len(FAULT_SEEDS)
+    check(none_mean > FAULT_NONE_BAR, f"{FAULT_BASELINE} one-shot mean {none_mean} not above 0.6")
+    for name, metrics in out["one_shot"].items():
+        mean = sum(metrics) / len(metrics)
+        check(
+            mean >= none_mean - max_drop,
+            f"{name} one-shot mean {mean} below {FAULT_BASELINE}'s {none_mean} - {max_drop}",
+        )
+        print(
+            f"[faults] gate {name}: one-shot mean {mean:.4f}, Δ {mean - none_mean:+.4f} against "
+            f"{FAULT_BASELINE}'s {none_mean:.4f} (floor -{max_drop}, {os.path.relpath(FAULT_GATE_FILE, ROOT)})"
+        )
+
+    few_none = None
+    for name in [FAULT_BASELINE] + [n for n in FAULT_NAMES if n != FAULT_BASELINE]:
+        res, launches, wall = _fault_run(run_few_shot, name, SEED, "few-shot")
+        err, points = check_reconstructions(res, f"{name} few-shot")
+        recon_err = max(recon_err, err)
+        out["points"].update(points)
+        out["sdpa"] += launches
+        out["kmeans"] += res.cfg.kmeans_iters + 2
+        out["few_shot"][name] = res.metric
+        few_none = res.metric if name == FAULT_BASELINE else few_none
+        d = res.diagnostics
+        steps5 = sum(d["fewshot_ssl_steps"])
+        print(
+            f"[faults] {name} few-shot seed {SEED}: {res.metric_name} {res.metric:.4f} (Δ "
+            f"{res.metric - few_none:+.4f} against {FAULT_BASELINE}'s; its one-shot pass "
+            f"{d['one_shot_metric']:.4f}) | {res.ledger.total_bytes()} bytes in "
+            f"{res.ledger.comm_times()} comm times (expected {FAULT_LEDGERS[name]['few-shot']}) | "
+            f"take {_rates(d['fewshot_take_rate'])} | Eq. 10 launches {launches} | ⑤' "
+            f"{d['step_ms']['5p_local_ssl'] / steps5:.3f} ms a step ({steps5} steps) | wall "
+            f"{wall:.2f} s"
+        )
+    # ⑤ (POINT_UPLOAD2 = 2), ⑥' (POINT_ROUND2 = 3) and the evaluation (4)
+    check(out["points"] >= {2, 3, 4}, f"reconstructions at points {sorted(out['points'])}")
+    print(
+        f"[faults] Eq. 10 reconstructions at ⑤, ⑥' and the evaluation vs the CPU's plain route: "
+        f"max|err| {recon_err:.3e} (tolerance {KERNEL_TOL})"
+    )
+
+    for name in FAULT_ITERATIVE:
+        bundle = scenarios.build(name, seed=SEED, device="cuda")
+        spec = bundle.spec
+        it = baselines.IterativeConfig(iterations=spec.budget("iterations", 300))
+        for method, runner in BASELINE_RUNNERS:
+            t0 = time.perf_counter()
+            res = runner(
+                SEED, bundle.split, bundle.extractors, bundle.ssl_cfgs, it, device="cuda",
+                fault=spec.fault,
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            what = f"faults {name} {method}"
+            d = res.diagnostics
+            got = (res.ledger.total_bytes(), res.ledger.comm_times())
+            check(got == FAULT_LEDGERS[name][method], f"{what}: (bytes, comm times) {got}")
+            check(bool(torch.isfinite(d["losses"]).all()), f"{what}: a loss is not finite")
+            check(math.isfinite(res.metric), f"{what}: {res.metric_name} {res.metric}")
+            tags = res.ledger.by_tag()
+            retry = sum(tags.get(t, (0, 0))[1] for t in ("retry_reps", "retry_timeout"))
+            if spec.fault is not None:
+                check(d["parties_survived"] == 3, f"{what}: {d['parties_survived']} survived")
+                check(d["fault_modeled"] is True, f"{what}: the dropout was not modeled")
+                check(retry == d["fault_retry_bytes"] > 0, f"{what}: retry bytes {retry}")
+            else:
+                check(retry == 0 and "fault_kind" not in d, f"{what}: fault-free run")
+            out["iterative"].append({"scenario": name, "method": method, "metric": res.metric,
+                                     "bytes": got[0], "comm_times": got[1],
+                                     "retry_bytes": retry, "wall_s": wall})
+            print(
+                f"[faults] {name} {method}: {res.metric_name} {res.metric:.4f} | {got[0]} bytes in "
+                f"{got[1]} comm times (expected {FAULT_LEDGERS[name][method]}), retry bytes "
+                f"{retry} | survived {d.get('parties_survived', spec.num_parties)} | wall {wall:.2f} s"
+            )
+    print(json.dumps({
+        "faults": {
+            "one_shot": out["one_shot"],
+            "few_shot": out["few_shot"],
+            "iterative": out["iterative"],
+            "reconstruct_max_abs_err": recon_err,
+            "card": line,
+        }
+    }))
+    return out
+
+
 def make_art(spec, shapes, gen):
     """A seeded artifact whose overlap reps are its extractors' outputs on
     N_O seeded aligned rows."""
@@ -1656,7 +1904,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sdpa_row = phase_sdpa(gen)
-    phase_sdpa_catalog(gen)
+    phase_sdpa_extra(gen, CATALOG_SDPA_SHAPES, "③' catalog")
+    phase_sdpa_extra(gen, FAULT_SDPA_SHAPES, "faults")
     phase_sdpa_plans(gen)
     kmeans_row = phase_kmeans(gen)
     phase_kmeans_plans(gen)
@@ -1736,6 +1985,24 @@ def main() -> int:
         f"launches {ft_km} (expected {km_ft}) in {finetune_s:.1f} s"
     )
 
+    # ---- the fault/* family: counters from 0, read right after
+    torch.cuda.empty_cache()
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    t0 = time.time()
+    flt = phase_faults(line)
+    torch.cuda.synchronize()
+    faults_s = time.time() - t0
+    flt_sdpa, flt_km = ops.LAUNCHES, kops.LAUNCHES
+    check(flt_sdpa == flt["sdpa"], f"faults: sdpa_estimator launched {flt_sdpa} times")
+    check(flt_km == flt["kmeans"], f"faults: kmeans launched {flt_km} times")
+    check(rops.LAUNCHES == dops.LAUNCHES == 0, "a zoo kernel launched on the fault path")
+    print(
+        f"[path] faults: sdpa_estimator launches {flt_sdpa} (expected {flt['sdpa']}: one a "
+        f"dropped party at ⑤, ⑥' and each evaluation, and few-shot's ③', one a party), kmeans "
+        f"launches {flt_km} (expected {flt['kmeans']}: {ProtocolConfig().kmeans_iters + 2} a "
+        f"one-shot or few-shot run; the iterative baselines launch none) in {faults_s:.1f} s"
+    )
+
     # ---- the scenario catalog: counters from 0, read right after
     torch.cuda.empty_cache()
     ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
@@ -1794,7 +2061,8 @@ def main() -> int:
     print(
         f"[time] {time.time() - t_start:.1f} s from the build on; few-shot phases "
         f"{few_shot_s:.1f} s; baselines A {baselines_a_s:.1f} s, baselines B {baselines_b_s:.1f} "
-        f"s, few-shot + finetune A {finetune_s:.1f} s, catalog {catalog_s:.1f} s; the zoo's "
+        f"s, few-shot + finetune A {finetune_s:.1f} s, faults {faults_s:.1f} s, catalog "
+        f"{catalog_s:.1f} s; the zoo's "
         f"share: kernel phases "
         f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s"
     )
@@ -1813,14 +2081,14 @@ def main() -> int:
             "sdpa_estimator",
             "src/repro_torch/kernels/sdpa_estimator/csrc/sdpa_estimator.cu",
             "src/repro/kernels/sdpa_estimator/kernel.py:38",
-            launches + few_sdpa + ft_sdpa + cat_sdpa,
+            launches + few_sdpa + ft_sdpa + cat_sdpa + flt_sdpa,
             sdpa_row,
         ),
         entry(
             "kmeans",
             "src/repro_torch/kernels/kmeans/csrc/kmeans_assign.cu",
             "src/repro/kernels/kmeans/kernel.py:32",
-            km_launches + few_km + ft_km + cat_km,
+            km_launches + few_km + ft_km + cat_km + flt_km,
             kmeans_row,
         ),
         entry(

@@ -17,8 +17,16 @@ Each runs on ``device`` (``cuda`` unless the caller says ``"cpu"``) through
 seeded with ``seed``, in this order: the clients' init
 (``protocol._build_clients``), the server classifier's, then the schedule
 seed ``seed0``. Every transfer goes through the :class:`CommLedger` with the
-reference's tags and rounds. The reference's seed folds and fault plans
-have no counterpart yet.
+reference's tags and rounds. The reference's seed folds have no
+counterpart.
+
+A ``fault`` follows the reference's model of the synchronous round loop
+(:func:`log_fault_plan`): a dropout stalls the loop at its stage's share
+of the steps (the later steps compute their loss and commit nothing), the
+server then spends ``retry_rounds`` rounds re-collecting the survivors'
+batches and probing the dropped party, and the evaluation zero-imputes
+the dropped party's test reps. The other fault kinds have no model here:
+they run fault-free and say so (``fault_modeled: False``).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from repro_torch.data.vertical import VerticalSplit
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import iterative
 from repro_torch.engine.local_ssl import seed_from
+from repro_torch.scenarios.faults import FaultSpec
 
 
 @dataclass(frozen=True)
@@ -78,6 +87,50 @@ def log_iterative_rounds(
             num = payload_factor * bs * rep_dim * 4
             ledger.log_bytes(k, "up", "reps_batch", num, round=r_up)
             ledger.log_bytes(k, "down", "grads_batch", num, round=r_dn)
+
+
+def log_fault_plan(
+    ledger: CommLedger,
+    fault: Optional[FaultSpec],
+    rep_dims: Sequence[int],
+    n_steps: int,
+    bs: int,
+    payload_factor: int = 1,
+) -> tuple:
+    """The ledger and commit horizon of an ``n_steps`` session under
+    ``fault``: without a dropout, :func:`log_iterative_rounds` over every
+    step; with one, over the steps before the stall, then per retry round
+    every survivor's batch up again (``retry_reps``) and a 4-byte
+    ``retry_timeout`` down to the dropped party. Returns (the number of
+    steps that commit, None for all; the fault diagnostics)."""
+    num_parties = len(rep_dims)
+    if fault is None or fault.kind != "dropout":
+        log_iterative_rounds(ledger, rep_dims, n_steps, bs, payload_factor)
+        if fault is None:
+            return None, {}
+        return None, {"fault_kind": fault.kind, "parties_survived": num_parties,
+                      "fault_modeled": False}
+    t_drop = fault.iterative_active_steps(n_steps)
+    log_iterative_rounds(ledger, rep_dims, t_drop, bs, payload_factor)
+    retry_bytes = 0
+    for _ in range(fault.retry_rounds):
+        r_up, r_dn = ledger.next_round(), ledger.next_round()
+        for k, rep_dim in enumerate(rep_dims):
+            if k == fault.party:
+                continue
+            num = payload_factor * bs * rep_dim * 4
+            ledger.log_bytes(k, "up", "retry_reps", num, round=r_up)
+            retry_bytes += num
+        ledger.log_bytes(fault.party, "down", "retry_timeout", 4, round=r_dn)
+        retry_bytes += 4
+    return t_drop, {
+        "fault_kind": fault.kind,
+        "fault_stage": fault.stage,
+        "parties_survived": fault.parties_survived(num_parties),
+        "fault_modeled": True,
+        "fault_retry_rounds": fault.retry_rounds,
+        "fault_retry_bytes": retry_bytes,
+    }
 
 
 def fedbcd_schedule(seed0: int, n: int, batch_size: int, rounds: int) -> np.ndarray:
@@ -144,13 +197,19 @@ def _finish(
     ledger: CommLedger,
     losses: torch.Tensor,
     diags: dict,
+    fault: Optional[FaultSpec] = None,
 ) -> VFLResult:
     """Score the trained state on the held-out split and pack the result;
     ``diagnostics`` gets the session's losses, the last one and each
-    stage's time (``step_ms``: setup, session, eval)."""
+    stage's time (``step_ms``: setup, session, eval). Under a dropout the
+    dropped party's test reps are zeros; under any fault the metric is
+    also ``degraded_metric``."""
     s.clock.lap("session")
-    name, metric = protocol._evaluate(s.server, s.clients, s.split)
+    dropout = fault if fault is not None and fault.kind == "dropout" else None
+    name, metric = protocol._evaluate(s.server, s.clients, s.split, dropout)
     s.clock.lap("eval")
+    if fault is not None:
+        diags["degraded_metric"] = float(metric)
     losses = losses.cpu()
     diags.update(
         losses=losses,
@@ -170,9 +229,11 @@ def run_vanilla(
     server: Optional[VFLServer] = None,
     ledger: Optional[CommLedger] = None,
     device: DeviceLike = None,
+    fault: Optional[FaultSpec] = None,
 ) -> VFLResult:
     """Vanilla SplitNN VFL: ``cfg.iterations`` joint steps over shuffled
-    epochs of the aligned rows. ``clients`` / ``server`` / ``ledger`` take
+    epochs of the aligned rows, under ``fault`` if given
+    (:func:`log_fault_plan`). ``clients`` / ``server`` / ``ledger`` take
     pre-trained state and a ledger to continue (the finetune of
     ``protocol.run_few_shot_finetune``)."""
     cfg = cfg if cfg is not None else IterativeConfig()
@@ -181,10 +242,15 @@ def run_vanilla(
     sched = iterative.build_iteration_schedule(
         s.seed0, s.split.labels.shape[0], cfg.batch_size, cfg.iterations
     )
+    active, diags = log_fault_plan(
+        ledger, fault, [e.rep_dim for e in extractors], cfg.iterations, s.bs
+    )
     step = iterative.make_splitnn_step_fn(s.extractors, s.server.classifier, cfg.iter_hparams())
-    losses = iterative.run_iterative_session(step, s.split.aligned, s.split.labels, sched)
-    log_iterative_rounds(ledger, [e.rep_dim for e in extractors], cfg.iterations, s.bs)
-    return _finish(s, extractors, ledger, losses, {"iterations": cfg.iterations})
+    losses = iterative.run_iterative_session(
+        step, s.split.aligned, s.split.labels, sched, active_steps=active
+    )
+    diags["iterations"] = cfg.iterations
+    return _finish(s, extractors, ledger, losses, diags, fault)
 
 
 def run_fedbcd(
@@ -194,20 +260,25 @@ def run_fedbcd(
     ssl_cfgs: Sequence[SSLConfig],
     cfg: Optional[IterativeConfig] = None,
     device: DeviceLike = None,
+    fault: Optional[FaultSpec] = None,
 ) -> VFLResult:
     """FedBCD-p: ``cfg.iterations // cfg.fedbcd_q`` rounds, each one rep
-    exchange then Q local updates on both sides."""
+    exchange then Q local updates on both sides. A dropout's stall counts
+    rounds, not local updates."""
     cfg = cfg if cfg is not None else IterativeConfig()
     ledger = CommLedger()
     rounds = cfg.iterations // cfg.fedbcd_q
     s = _setup(seed, split, extractors, ssl_cfgs, cfg, None, None, device)
     sched = fedbcd_schedule(s.seed0, s.split.labels.shape[0], cfg.batch_size, rounds)
+    active, diags = log_fault_plan(ledger, fault, [e.rep_dim for e in extractors], rounds, s.bs)
     step = iterative.make_fedbcd_step_fn(
         s.extractors, s.server.classifier, cfg.iter_hparams(), cfg.fedbcd_q
     )
-    losses = iterative.run_iterative_session(step, s.split.aligned, s.split.labels, sched)
-    log_iterative_rounds(ledger, [e.rep_dim for e in extractors], rounds, s.bs)
-    return _finish(s, extractors, ledger, losses, {"rounds": rounds, "Q": cfg.fedbcd_q})
+    losses = iterative.run_iterative_session(
+        step, s.split.aligned, s.split.labels, sched, active_steps=active
+    )
+    diags.update(rounds=rounds, Q=cfg.fedbcd_q)
+    return _finish(s, extractors, ledger, losses, diags, fault)
 
 
 def run_fedcvt(
@@ -217,11 +288,13 @@ def run_fedcvt(
     ssl_cfgs: Sequence[SSLConfig],
     cfg: Optional[IterativeConfig] = None,
     device: DeviceLike = None,
+    fault: Optional[FaultSpec] = None,
 ) -> VFLResult:
     """FedCVT-style semi-supervised baseline: vanilla iterations plus, per
     iteration, each party's unaligned batch with Eq. 10-estimated missing
     reps and pseudo-labels above ``cfg.fedcvt_threshold``. Overlap and
-    unaligned reps go up and both gradients come down: 2× vanilla's bytes."""
+    unaligned reps go up and both gradients come down: 2× vanilla's bytes,
+    retry rounds included."""
     cfg = cfg if cfg is not None else IterativeConfig()
     ledger = CommLedger()
     s = _setup(seed, split, extractors, ssl_cfgs, cfg, None, None, device)
@@ -232,11 +305,12 @@ def run_fedcvt(
     u_scheds = iterative.build_unaligned_schedule(
         0, [x.shape[0] for x in s.split.unaligned], s.bs, cfg.iterations
     )
+    active, diags = log_fault_plan(
+        ledger, fault, [e.rep_dim for e in extractors], cfg.iterations, s.bs, payload_factor=2
+    )
     step = iterative.make_fedcvt_step_fn(s.extractors, s.server.classifier, cfg.iter_hparams())
     losses = iterative.run_iterative_session(
-        step, s.split.aligned, s.split.labels, sched, s.split.unaligned, u_scheds
+        step, s.split.aligned, s.split.labels, sched, s.split.unaligned, u_scheds, active
     )
-    log_iterative_rounds(
-        ledger, [e.rep_dim for e in extractors], cfg.iterations, s.bs, payload_factor=2
-    )
-    return _finish(s, extractors, ledger, losses, {"iterations": cfg.iterations})
+    diags["iterations"] = cfg.iterations
+    return _finish(s, extractors, ledger, losses, diags, fault)

@@ -15,15 +15,17 @@ Counterpart of ``repro.engine.iterative`` at one seed:
 * ``build_iteration_schedule`` / ``build_unaligned_schedule``: the
   numpy-seeded minibatch schedules, equal to the reference's index for
   index;
-* ``run_iterative_session``: a Python loop of a step over a schedule.
+* ``run_iterative_session``: a Python loop of a step over a schedule, up
+  to a commit horizon (``active_steps``, the fault path's dropout stall).
 
 A step function updates the parties' extractors, the server classifier and
 their momentum traces (unclipped SGD with momentum, ``optim.ClippedSGD``
-with ``max_norm=None``) in place, and returns the step's loss. Only the
+with ``max_norm=None``) in place, and returns the step's loss; called with
+``commit=False`` it only computes that loss at the current state. Only the
 extractors and the classifier train: a client's local head rides in the
 reference's carry with a zero gradient and stays unchanged, so here it is
-left out. The reference's jitted ``lax.scan`` session, its compile cache,
-its seed fold and its fault horizon have no counterpart.
+left out. The reference's jitted ``lax.scan`` session, its compile cache
+and its seed fold have no counterpart.
 """
 
 from __future__ import annotations
@@ -41,11 +43,10 @@ from repro_torch.core.ssl import cross_entropy
 from repro_torch.data.loader import epoch_batches
 from repro_torch.optim import ClippedSGD
 
-# step(xs, y, xs_u) -> loss: minibatches of each party's aligned rows, their
-# labels, and (FedCVT only) each party's unaligned minibatch
-Step = Callable[
-    [Sequence[torch.Tensor], torch.Tensor, Optional[Sequence[torch.Tensor]]], torch.Tensor
-]
+# step(xs, y, xs_u, commit=True) -> loss: minibatches of each party's aligned
+# rows, their labels, and (FedCVT only) each party's unaligned minibatch;
+# with commit=False the step updates nothing
+Step = Callable[..., torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -90,11 +91,13 @@ def make_splitnn_step_fn(
     extractors = list(extractors)
     clients, server = _optimizers(extractors, classifier, hp)
 
-    def step(xs, y, xs_u=None):
+    def step(xs, y, xs_u=None, commit=True):
         del xs_u
-        reps = [e(x) for e, x in zip(extractors, xs)]
-        loss = cross_entropy(classifier(concat_reps(reps)), y).mean()
-        _joint_update(loss, [*clients, server])
+        with torch.set_grad_enabled(commit):
+            reps = [e(x) for e, x in zip(extractors, xs)]
+            loss = cross_entropy(classifier(concat_reps(reps)), y).mean()
+        if commit:
+            _joint_update(loss, [*clients, server])
         return loss.detach()
 
     return step
@@ -113,22 +116,24 @@ def make_fedcvt_step_fn(
     extractors = list(extractors)
     clients, server = _optimizers(extractors, classifier, hp)
 
-    def step(xs, y, xs_u):
-        reps_o = [e(x) for e, x in zip(extractors, xs)]
-        loss = cross_entropy(classifier(concat_reps(reps_o)), y).mean()
-        for k, (e, x_u) in enumerate(zip(extractors, xs_u)):
-            h_u = e(x_u)
-            parts = [
-                h_u if j == k else estimator.sdpa_transform_differentiable(h_u, reps_o[k], h_o_j)
-                for j, h_o_j in enumerate(reps_o)
-            ]
-            logits_u = classifier(concat_reps(parts))
-            p_u = torch.softmax(logits_u.detach(), dim=-1)
-            conf, pseudo = p_u.max(dim=-1)
-            mask = (conf > hp.fedcvt_threshold).float()
-            ce = cross_entropy(logits_u, pseudo)
-            loss = loss + (ce * mask).sum() / mask.sum().clamp(min=1.0)
-        _joint_update(loss, [*clients, server])
+    def step(xs, y, xs_u, commit=True):
+        with torch.set_grad_enabled(commit):
+            reps_o = [e(x) for e, x in zip(extractors, xs)]
+            loss = cross_entropy(classifier(concat_reps(reps_o)), y).mean()
+            for k, (e, x_u) in enumerate(zip(extractors, xs_u)):
+                h_u = e(x_u)
+                parts = [
+                    h_u if j == k else estimator.sdpa_transform_differentiable(h_u, reps_o[k], o)
+                    for j, o in enumerate(reps_o)
+                ]
+                logits_u = classifier(concat_reps(parts))
+                p_u = torch.softmax(logits_u.detach(), dim=-1)
+                conf, pseudo = p_u.max(dim=-1)
+                mask = (conf > hp.fedcvt_threshold).float()
+                ce = cross_entropy(logits_u, pseudo)
+                loss = loss + (ce * mask).sum() / mask.sum().clamp(min=1.0)
+        if commit:
+            _joint_update(loss, [*clients, server])
         return loss.detach()
 
     return step
@@ -144,10 +149,12 @@ def make_fedbcd_step_fn(
     extractors = list(extractors)
     clients, server = _optimizers(extractors, classifier, hp)
 
-    def step(xs, y, xs_u=None):
+    def step(xs, y, xs_u=None, commit=True):
         del xs_u
         with torch.no_grad():
             reps = [e(x) for e, x in zip(extractors, xs)]
+            if not commit:
+                return cross_entropy(classifier(concat_reps(reps)), y).mean()
         leaves = [r.requires_grad_(True) for r in reps]
         loss = cross_entropy(classifier(concat_reps(leaves)), y).mean()
         g_reps = torch.autograd.grad(loss, leaves)
@@ -203,10 +210,13 @@ def run_iterative_session(
     schedule: np.ndarray,
     xs_u: Optional[Sequence[torch.Tensor]] = None,
     u_schedules: Optional[Sequence[np.ndarray]] = None,
+    active_steps: Optional[int] = None,
 ) -> torch.Tensor:
     """Run ``step`` over every row of ``schedule`` (and, with ``xs_u``, the
     matching rows of ``u_schedules``); returns the (S,) losses on y's
-    device."""
+    device. With ``active_steps`` only the first ``active_steps`` steps
+    commit: each later step computes its loss at the frozen state (the
+    reference's stalled round loop) and updates nothing."""
     dev = y.device
     idx = torch.from_numpy(schedule).to(dev)
     u_idx = None if xs_u is None else [torch.from_numpy(u).to(dev) for u in u_schedules]
@@ -214,5 +224,6 @@ def run_iterative_session(
     for i in range(idx.shape[0]):
         il = idx[i]
         xub = None if xs_u is None else [xu[ui[i]] for xu, ui in zip(xs_u, u_idx)]
-        losses.append(step([x[il] for x in xs], y[il], xub))
+        commit = active_steps is None or i < active_steps
+        losses.append(step([x[il] for x in xs], y[il], xub, commit=commit))
     return torch.stack(losses) if losses else torch.zeros(0, device=dev)

@@ -47,9 +47,10 @@ class PartyTask:
     pseudo-labeled and private data.
 
     ``labeled_mask`` / ``unlabeled_mask`` are per-row validity masks (None:
-    every row counts). ``step_valid`` is the fault path's per-step commit
-    mask; the port does not run faults yet, and a task that sets it is
-    refused."""
+    every row counts). ``step_valid`` is the fault path's (S,) per-step
+    commit mask (None: every step commits): a step whose entry is 0 draws
+    and computes as usual but leaves the parameters and the momentum as
+    they were."""
 
     extractor: nn.Module
     head: nn.Module
@@ -116,15 +117,18 @@ def train_party_ssl(
     ``seed0`` seeds the schedule (as the reference's ``build_schedule``
     draws it from its key). Each step's augmentation draws come from
     ``step_draws[i]`` when given, else from ``generator``, which must live
-    on the data's device."""
-    if task.step_valid is not None:
-        raise NotImplementedError("per-step commit masks (the fault path) are not ported yet")
+    on the data's device. A step that ``task.step_valid`` marks 0 still
+    draws its augmentation and computes its loss and metrics, but commits
+    nothing (no optimizer step), as the reference's masked session."""
     sched = build_schedule(seed0, task.x_labeled.shape[0], task.x_unlabeled.shape[0], hp)
     steps = sched.idx_labeled.shape[0]
     if step_draws is None and generator is None and steps:
         raise ValueError("give the per-step draws or a generator to draw them from")
     if step_draws is not None and len(step_draws) != steps:
         raise ValueError(f"{len(step_draws)} step draws for a {steps}-step schedule")
+    valid = None if task.step_valid is None else [v > 0 for v in task.step_valid.tolist()]
+    if valid is not None and len(valid) != steps:
+        raise ValueError(f"{len(valid)} step_valid entries for a {steps}-step schedule")
     dev = task.x_labeled.device
     idx_l = torch.from_numpy(sched.idx_labeled).to(dev)
     idx_u = torch.from_numpy(sched.idx_unlabeled).to(dev)
@@ -143,16 +147,19 @@ def train_party_ssl(
             if step_draws is not None
             else draw_ssl(generator, task.ssl_cfg, xb_l.shape, xb_u.shape, dev)
         )
-        loss, metrics = ssl_loss(
-            logits_fn,
-            xb_l,
-            task.y_pseudo[il],
-            xb_u,
-            task.ssl_cfg,
-            draws,
-            task.feature_mean,
-            None if task.labeled_mask is None else task.labeled_mask[il],
-            None if task.unlabeled_mask is None else task.unlabeled_mask[iu],
-        )
-        opt.step(torch.autograd.grad(loss, params))
+        commit = valid is None or valid[i]
+        with torch.set_grad_enabled(commit):
+            loss, metrics = ssl_loss(
+                logits_fn,
+                xb_l,
+                task.y_pseudo[il],
+                xb_u,
+                task.ssl_cfg,
+                draws,
+                task.feature_mean,
+                None if task.labeled_mask is None else task.labeled_mask[il],
+                None if task.unlabeled_mask is None else task.unlabeled_mask[iu],
+            )
+        if commit:
+            opt.step(torch.autograd.grad(loss, params))
     return {k: float(v) for k, v in metrics.items()}

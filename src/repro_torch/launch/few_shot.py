@@ -9,22 +9,28 @@ scenario (``--smoke``: its shrunk variant), its data drawn with the port's
 own generators, the run at the scenario's training budgets; the output is
 the few-shot metric beside its one-shot pass's, the Eq. 9 gate and take
 rates of each party, the per-step times, the comm times (5) and the
-communication ledger. A ``fault/*`` scenario with a fault set is refused.
-Without ``--device cpu`` it runs on ``cuda`` and raises where there is no
+communication ledger; for a ``fault/*`` scenario, run under its fault, the
+fault diagnostics too. Without ``--device cpu`` it runs on ``cuda`` and raises where there is no
 card.
 """
 
 from __future__ import annotations
 
 from repro_torch.core.protocol import run_few_shot
-from repro_torch.launch.one_shot import parse_scenario_args, scenario_run
+from repro_torch.launch.one_shot import parse_scenario_args, print_fault, scenario_run
 
 
 def main(argv=None) -> int:
     args = parse_scenario_args(__doc__, argv)
     spec, bundle, cfg = scenario_run(args)
     res = run_few_shot(
-        args.seed, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device=args.device
+        args.seed,
+        bundle.split,
+        bundle.extractors,
+        bundle.ssl_cfgs,
+        cfg,
+        device=args.device,
+        fault=spec.fault,
     )
     d = res.diagnostics
     steps = " ".join(f"{k} {v:.1f}" for k, v in d["step_ms"].items())
@@ -35,6 +41,7 @@ def main(argv=None) -> int:
     print(f"take rate / party  : {[round(r, 4) for r in d['fewshot_take_rate']]}")
     print(f"comm times/client  : {res.ledger.comm_times()}   (paper: 5)")
     print(f"step ms            : {steps}")
+    print_fault(d)
     print(res.ledger.summary())
     return 0
 

@@ -18,7 +18,7 @@ field (27 scenarios):
 * ``fault/*``: one 4-party hard condition under nine fault treatments
   (dropout at four stages, a half-budget straggler, DP-noised uploads at
   two σ, a representation-only party) and its fault-free twin
-  ``fault/none``. Registered as data; the port does not run faults yet.
+  ``fault/none``; the runners apply its ``fault`` (``core.faults``).
 """
 from __future__ import annotations
 

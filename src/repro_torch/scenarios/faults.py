@@ -5,9 +5,8 @@ A :class:`FaultSpec` attaches to a ``ScenarioSpec`` and names ONE party
 fault: ``dropout`` (the party disappears at a named protocol stage),
 ``straggler`` (it completes ``epoch_fraction`` of its SSL epochs),
 ``dp_upload`` (its uploads carry Gaussian noise of ``dp_sigma`` × their
-std) or ``representation_only`` (it never runs local SSL). The port
-registers the ``fault/*`` scenarios with these specs but does not run
-them yet: its CLIs refuse a spec whose ``fault`` is set (ROADMAP #11).
+std) or ``representation_only`` (it never runs local SSL). The runners
+apply a spec through ``repro_torch.core.faults``.
 """
 from __future__ import annotations
 

@@ -249,6 +249,37 @@ def test_bf16_few_shot_on_the_card(cuda):
     chip_smoke.check_step3p(res, "bf16", chip_smoke.BF16_STEP3P_TOL)
 
 
+@pytest.mark.parametrize("name", ["fault/dropout-pre-round2", "fault/straggler-half"])
+def test_fault_few_shot_on_the_card(name, cuda):
+    """A fault/* member's few-shot at one epoch on the card: the CPU's
+    ledger event for event (a round-2 dropout's missing events included);
+    ``sdpa_estimator`` launched for ③' once a party plus once a
+    reconstruction (⑥' and two evaluations for the dropout), 27 ``kmeans``
+    launches; every reconstruction within 1e-4 of the CPU's plain route on
+    the run's own inputs."""
+    cfg = ProtocolConfig(client_epochs=1, server_epochs=1)
+    cpu = scenarios.build(name, seed=0, device="cpu")
+    fault = cpu.spec.fault
+    want = run_few_shot(0, cpu.split, cpu.extractors, cpu.ssl_cfgs, cfg, device="cpu", fault=fault)
+    bundle = scenarios.build(name, seed=0, device=cuda)
+    before, before_km = ops.LAUNCHES, kops.LAUNCHES
+    res = run_few_shot(
+        0, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device=cuda, fault=fault
+    )
+    pools = [u.shape[0] for u in bundle.split.unaligned]
+    expected = chip_smoke.fault_launches(fault, bundle.spec.num_parties, pools, True)
+    assert expected == (7 if "dropout" in name else 4)
+    assert ops.LAUNCHES - before == expected
+    assert kops.LAUNCHES - before_km == cfg.kmeans_iters + 2
+    assert [e.__dict__ for e in res.ledger.events] == [e.__dict__ for e in want.ledger.events]
+    assert res.ledger.total_bytes() == chip_smoke.FAULT_LEDGERS[name]["few-shot"][0]
+    err, points = chip_smoke.check_reconstructions(res, name)
+    assert points == ([4, 3, 4] if "dropout" in name else [])
+    assert err <= chip_smoke.KERNEL_TOL
+    assert res.diagnostics["parties_survived"] == (3 if "dropout" in name else 4)
+    assert 0.0 <= res.metric <= 1.0
+
+
 def test_kernel_takes_an_empty_query(cuda):
     """An empty private pool (full overlap): no rows to estimate, nothing
     launched, an empty f32 result."""

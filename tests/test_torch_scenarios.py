@@ -10,7 +10,8 @@ reference's (``repro.scenarios``, ``repro.data``), on the CPU.
 * ``split_image_patches`` and ``make_vfl_partition`` (patch grid, padded
   capacity) split one numpy array exactly as the reference does;
 * every scenario builds on the CPU with the layout its spec implies, and
-  the training CLIs take every name and refuse a fault.
+  the training CLIs take every name and run a fault scenario under its
+  fault.
 """
 
 import dataclasses
@@ -220,12 +221,26 @@ def test_every_scenario_builds_on_the_cpu(name):
 
 
 @pytest.mark.parametrize("cli", [one_shot, few_shot])
-def test_clis_take_every_name_and_refuse_faults(cli):
+def test_clis_take_every_name_and_refuse_faults(cli, monkeypatch, capsys):
+    """Both CLIs take every name; a fault/* scenario, which they once
+    refused, runs under its fault (here ``fault/dropout-pre-ssl`` at
+    ``--smoke --device cpu``, its budgets cut to 2 epochs) and prints the
+    fault diagnostics."""
     faulted = [n for n in NAMES if scenarios.get(n).fault is not None]
     assert len(faulted) == 8 and "fault/none" not in faulted
     for name in NAMES:
         args = one_shot.parse_scenario_args("", ["--scenario", name, "--smoke"])
         assert args.scenario == name and args.smoke
-    for name in faulted:
-        with pytest.raises(NotImplementedError, match="ROADMAP #11"):
-            cli.main(["--scenario", name, "--device", "cpu"])
+    get = scenarios.get
+    budgets = (("client_epochs", 2), ("server_epochs", 2), ("iterations", 8))
+    monkeypatch.setattr(scenarios, "get", lambda n: dataclasses.replace(get(n), budgets=budgets))
+    assert cli.main(["--scenario", "fault/dropout-pre-ssl", "--smoke", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "fault/dropout-pre-ssl seed 0 on cpu" in out
+    fault_line = next(ln for ln in out.splitlines() if ln.startswith("fault "))
+    for field in ("fault_kind=dropout", "fault_stage=pre_ssl", "parties_survived=3",
+                  "degraded_metric="):
+        assert field in fault_line, fault_line
+    # party 1's missing uploads: 20480 or 147392 bytes, as the ledger table prints them
+    total = 20480 if cli is one_shot else 147392
+    assert f"total: {total / 2**20:.2f} MB" in out
