@@ -17,8 +17,11 @@ Each runs on ``device`` (``cuda`` unless the caller says ``"cpu"``) through
 seeded with ``seed``, in this order: the clients' init
 (``protocol._build_clients``), the server classifier's, then the schedule
 seed ``seed0``. Every transfer goes through the :class:`CommLedger` with the
-reference's tags and rounds. The reference's seed folds have no
-counterpart.
+reference's tags and rounds. ``run_vanilla_seeds`` / ``run_fedcvt_seeds`` /
+``run_fedbcd_seeds`` are the runner registry's multi-seed entries: for now a
+per-seed loop of the runner, which logs one prototype ledger (checked byte
+for byte across seeds) and records ``seed_fold`` 1 and ``engine_path``
+``"python"``; the reference's stacked iterative fold is still to come.
 
 A ``fault`` follows the reference's model of the synchronous round loop
 (:func:`log_fault_plan`): a dropout stalls the loop at its stage's share
@@ -314,3 +317,37 @@ def run_fedcvt(
     )
     diags["iterations"] = cfg.iterations
     return _finish(s, extractors, ledger, losses, diags, fault)
+
+
+def _seeds_loop(
+    runner, seeds, splits, extractors, ssl_cfgs, cfg, device, faults
+) -> List[VFLResult]:
+    """``runner`` at each seed, one after another. Without faults every
+    result holds the first seed's ledger (the prototype), after the check
+    that every seed moved the same bytes; a faulted entry keeps its own."""
+    results = [
+        runner(s, sp, ex, sc, cfg, device=device, fault=None if faults is None else faults[i])
+        for i, (s, sp, ex, sc) in enumerate(zip(seeds, splits, extractors, ssl_cfgs))
+    ]
+    if faults is None or all(f is None for f in faults):
+        protocol._assert_ledgers_identical([r.ledger for r in results])
+        for res in results[1:]:
+            res.ledger = results[0].ledger
+    for res in results:
+        res.diagnostics.update(seed_fold=1, engine_path="python", device_fold=1)
+    return results
+
+
+def run_vanilla_seeds(seeds, splits, extractors, ssl_cfgs, cfg=None, device=None, faults=None):
+    """:func:`run_vanilla` over S seeds (a per-seed loop, see the module doc)."""
+    return _seeds_loop(run_vanilla, seeds, splits, extractors, ssl_cfgs, cfg, device, faults)
+
+
+def run_fedcvt_seeds(seeds, splits, extractors, ssl_cfgs, cfg=None, device=None, faults=None):
+    """:func:`run_fedcvt` over S seeds (a per-seed loop, see the module doc)."""
+    return _seeds_loop(run_fedcvt, seeds, splits, extractors, ssl_cfgs, cfg, device, faults)
+
+
+def run_fedbcd_seeds(seeds, splits, extractors, ssl_cfgs, cfg=None, device=None, faults=None):
+    """:func:`run_fedbcd` over S seeds (a per-seed loop, see the module doc)."""
+    return _seeds_loop(run_fedbcd, seeds, splits, extractors, ssl_cfgs, cfg, device, faults)

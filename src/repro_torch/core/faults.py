@@ -16,7 +16,9 @@ baselines) apply it through these functions:
   party's missing upload, softmax(H_a H̄_aᵀ/√d) H̄_k from the lowest
   surviving party a over the last payloads H̄ it holds, through the
   ``sdpa_estimator`` kernel on the card. A party that never uploaded (stale
-  zeros) reconstructs to zeros;
+  zeros) reconstructs to zeros. ``reconstruct_dropped_seeds`` does it for
+  every entry of a fold, one launch for the entries that share a (dropped
+  party, anchor) pair, as the reference's fold does;
 * ``fault_step_valid``: one party's per-step commit mask of an SSL session
   (all zeros for a party that skips it, a straggler's leading whole epochs);
 * ``faulted_test_reps``: the degraded evaluation view of the test reps;
@@ -100,22 +102,46 @@ def reconstruct_dropped(
     party the fault drops there replaced by its Eq. 10 estimate from the
     lowest surviving party a, softmax(reps[a] stale[a]ᵀ/√d) stale[k], cast
     to reps[k]'s dtype. ``record`` (if given) receives each estimate's
-    inputs and f32 output."""
-    out = list(reps)
-    if fault is None or fault.kind != "dropout":
-        return out
-    alive = [k for k in range(len(reps)) if not fault.drops(k, point)]
-    for k in range(len(reps)):
-        if not fault.drops(k, point):
+    inputs and f32 output. The one-entry case of
+    :func:`reconstruct_dropped_seeds`."""
+    records = None if record is None else [record]
+    return reconstruct_dropped_seeds([reps], [stale], [fault], point, records)[0]
+
+
+def reconstruct_dropped_seeds(
+    reps_per_seed: Sequence[Sequence[torch.Tensor]],
+    stale_per_seed: Sequence[Sequence[torch.Tensor]],
+    faults_per_seed: Sequence[Optional[FaultSpec]],
+    point: int,
+    records: Optional[Sequence[list]] = None,
+) -> List[List[torch.Tensor]]:
+    """:func:`reconstruct_dropped` for every entry of a fold: the entries
+    whose fault drops party k at ``point`` with the same anchor a are one
+    Eq. 10 launch of their width (pairs in ascending order). ``records[e]``
+    (if given) receives entry e's reconstructions as
+    :func:`reconstruct_dropped` records them."""
+    out = [list(reps) for reps in reps_per_seed]
+    groups: dict = {}
+    for e, fault in enumerate(faults_per_seed):
+        if fault is None or fault.kind != "dropout":
             continue
-        a = alive[0]
-        est = estimator.sdpa_transform_batched(reps[a][None], stale[a][None], stale[k][None])[0]
-        out[k] = est.to(reps[k].dtype)
-        if record is not None:
-            record.append(
-                dict(point=point, party=k, anchor=a, query=reps[a], keys=stale[a],
-                     values=stale[k], estimate=est)
-            )
+        num_parties = len(out[e])
+        alive = [k for k in range(num_parties) if not fault.drops(k, point)]
+        for k in range(num_parties):
+            if fault.drops(k, point):
+                groups.setdefault((k, alive[0]), []).append(e)
+    for (k, a), members in sorted(groups.items()):
+        q = torch.stack([reps_per_seed[e][a] for e in members])
+        keys = torch.stack([stale_per_seed[e][a] for e in members])
+        values = torch.stack([stale_per_seed[e][k] for e in members])
+        est = estimator.sdpa_transform_batched(q, keys, values)
+        for i, e in enumerate(members):
+            out[e][k] = est[i].to(reps_per_seed[e][k].dtype)
+            if records is not None:
+                records[e].append(
+                    dict(point=point, party=k, anchor=a, query=q[i], keys=keys[i],
+                         values=values[i], estimate=est[i])
+                )
     return out
 
 

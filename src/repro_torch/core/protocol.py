@@ -28,6 +28,18 @@ Few-shot continues from there with one more round trip:
 Few-shot + finetune (Tab. 1's last row) then trains the whole stack for a
 while as vanilla SplitNN (``baselines.run_vanilla``), on the same ledger.
 
+Each algorithm is implemented once, over a list of entries (the folds):
+``_one_shot_pass`` / ``_few_shot_pass`` drive S seeds × C scenarios through
+the exchanges together, with step ③ one k-means search over all S·C·K
+gradient matrices, steps ④ and ⑤' one stacked S·C·K SSL session (where
+``local_ssl.stack_pays``), ③' one
+``sdpa_estimator`` launch a party over the stacked axis, and the server fits
+stacked (``engine.batched``). The single-seed runners are the S = 1 case;
+``run_seeds`` folds one scenario's seeds and ``run_scenarios_seeds`` a group
+of equal-shape scenarios as well. Communication is a function of shapes,
+so an unfaulted fold logs one prototype ledger (checked byte for byte
+across entries at every exchange) and each result gets a copy.
+
 A ``fault`` (``scenarios.FaultSpec``) is applied where the reference
 applies it (``core.faults``): a dropped party's transfers are missing from
 the ledger and the server rebuilds its uploads by Eq. 10 (⑤, ⑥' and the
@@ -39,7 +51,10 @@ Randomness comes from two generators seeded with ``seed``: one on the CPU
 (weight init, integer schedule seeds) and one on the device (augmentation,
 k-means++ and gate draws, gradient noise); a fault's noise comes from
 generators of its own (``faults.fault_noise``). Few-shot's one-shot pass
-draws exactly what ``run_one_shot`` draws at the same seed.
+draws exactly what ``run_one_shot`` draws at the same seed, and an entry of
+a fold exactly what its single-seed run draws: every entry keeps its own
+generators, and the stacked steps take draws made beforehand, entry after
+entry, in the single-seed order.
 """
 
 from __future__ import annotations
@@ -56,18 +71,12 @@ from repro_torch.core.client import VFLClient, make_client, ssl_task_for
 from repro_torch.core.clustering import cluster_purity
 from repro_torch.core.comm import CommLedger, nbytes
 from repro_torch.core.metrics import accuracy, binary_auc
-from repro_torch.core.server import VFLServer
+from repro_torch.core.server import VFLServer, fit_aux_classifiers_seeds, train_classifier_seeds
 from repro_torch.core.ssl import SSLConfig
 from repro_torch.data.vertical import VerticalSplit
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.engine import dispatch
-from repro_torch.engine.local_ssl import (
-    PartyTask,
-    SSLHParams,
-    schedule_steps,
-    seed_from,
-    train_party_ssl,
-)
+from repro_torch.engine import batched
+from repro_torch.engine.local_ssl import PartyTask, SSLHParams, schedule_steps, seed_from
 from repro_torch.scenarios.faults import (
     POINT_ROUND2,
     POINT_SSL,
@@ -75,6 +84,7 @@ from repro_torch.scenarios.faults import (
     POINT_UPLOAD2,
     FaultSpec,
 )
+from repro_torch.scenarios.grouping import split_signature
 
 KMEANS_RESTARTS = 4  # the reference's step-③ default
 _DEVICE_STREAM = 7919  # offset of the device generator's seed from the host's
@@ -93,6 +103,7 @@ class ProtocolConfig:
     grad_dp_sigma: float = 0.0  # Gaussian noise on partial grads, × each grad's std
     kmeans_iters: int = 25
     unlabeled_ratio: int = 2
+    engine_mode: str = "auto"  # "auto" | "vmap" | "python": the SSL sessions' path
     rep_dtype: torch.dtype = torch.float32
 
     def ssl_hparams(self) -> SSLHParams:
@@ -114,6 +125,14 @@ class VFLResult:
     extractor_specs: Sequence[ExtractorSpec] = ()
     cfg: Optional[ProtocolConfig] = None
     diagnostics: dict = field(default_factory=dict)
+
+    def summary_row(self) -> dict:
+        """The paper's three columns (metric, comm bytes, comm times) and the
+        execution diagnostics, through the one typed row builder
+        (``core.rows.training_row``)."""
+        from repro_torch.core import rows
+
+        return rows.training_row(self)
 
     def to_artifact(
         self, scenario: str = "", split: Optional[VerticalSplit] = None
@@ -241,108 +260,257 @@ def _generators(seed: int, dev: torch.device) -> Tuple[torch.Generator, torch.Ge
     return host, torch.Generator(device=dev).manual_seed(seed + _DEVICE_STREAM)
 
 
-def _one_shot_pass(
-    split: VerticalSplit,
-    extractors: Sequence[ExtractorSpec],
-    ssl_cfgs: Sequence[SSLConfig],
+@dataclass
+class _Entry:
+    """One (scenario, seed) entry of a fold: its split on the device, its
+    parties' specs and SSL configs, its fault, its two generators, and the
+    ledger it logs to (its own in a faulted fold, else the fold's shared
+    prototype). The passes fill in the rest."""
+
+    seed: int
+    split: VerticalSplit
+    specs: Sequence[ExtractorSpec]
+    ssl_cfgs: Sequence[SSLConfig]
+    fault: Optional[FaultSpec]
+    host: torch.Generator
+    draws: torch.Generator
+    ledger: CommLedger
+    clients: List[VFLClient] = field(default_factory=list)
+    server: Optional[VFLServer] = None
+    reps: List[torch.Tensor] = field(default_factory=list)
+    rebuilt: list = field(default_factory=list)  # each Eq. 10 reconstruction's record
+    diags: Dict = field(default_factory=dict)
+
+
+@dataclass
+class _Fold:
+    """The entries of one pass, the shared ledger of an unfaulted fold (None
+    when every entry logs to its own), the config and the step clock."""
+
+    entries: List[_Entry]
+    shared: Optional[CommLedger]
+    cfg: ProtocolConfig
+    clock: _StepClock
+
+    @property
+    def faulted(self) -> bool:
+        """A fold given faults (even all None): every entry has its own
+        ledger and every SSL session a commit mask, as the reference's."""
+        return self.shared is None
+
+    @property
+    def num_parties(self) -> int:
+        return len(self.entries[0].split.aligned)
+
+    def log(self, direction: str, tag: str, payloads, point: Optional[int], new_round: bool = True):
+        """One transfer of every party in every entry (``payloads[e][k]``).
+        An unfaulted fold logs it once in its shared ledger, after checking
+        that every entry moves the same bytes; a faulted fold logs each
+        entry's, leaving out the parties its fault drops at ``point``. With
+        ``new_round`` False the payloads ride the ledger's last round."""
+        if self.shared is not None:
+            led = self.shared
+            r = led.next_round() if new_round else max(ev.round for ev in led.events)
+            for k in range(self.num_parties):
+                sizes = {nbytes(p[k]) for p in payloads}
+                if len(sizes) != 1:
+                    raise ValueError(
+                        f"a fold broke ledger byte-identity for {tag!r}: per-entry bytes "
+                        f"{sorted(sizes)}"
+                    )
+                led.log_bytes(k, direction, tag, sizes.pop(), round=r)
+            return
+        for ent, p in zip(self.entries, payloads):
+            led = ent.ledger
+            r = led.next_round() if new_round else max(ev.round for ev in led.events)
+            skip = _skips(ent.fault, self.num_parties, point)
+            for k in range(self.num_parties):
+                if skip is None or not skip[k]:
+                    led.log_bytes(k, direction, tag, nbytes(p[k]), round=r)
+
+
+def _fold(
+    seeds: Sequence[int],
+    splits: Sequence[VerticalSplit],
+    extractors: Sequence[Sequence[ExtractorSpec]],
+    ssl_cfgs: Sequence[Sequence[SSLConfig]],
     cfg: ProtocolConfig,
-    ledger: CommLedger,
-    host: torch.Generator,
-    draws: torch.Generator,
-    clock: _StepClock,
-    fault: Optional[FaultSpec] = None,
-    seed: int = 0,
-) -> Tuple[VFLResult, List[torch.Tensor]]:
-    """Alg. 1 on a split already on its device, drawing from the caller's
-    generators (``fault``'s noise from those of ``seed``); returns the
-    result and the server's view of the step-⑤ uploads (few-shot's H_o)."""
-    dev = split.labels.device
-    clients = _build_clients(split, extractors, ssl_cfgs, host, dev)
-    server = VFLServer(num_classes=split.num_classes)
-    num_classes = split.num_classes
-    num_parties = len(clients)
-    rebuilt: list = []  # each Eq. 10 reconstruction's inputs and output
+    device: DeviceLike,
+    faults: Optional[Sequence[Optional[FaultSpec]]],
+    ledger: Optional[CommLedger] = None,
+) -> _Fold:
+    """The entries of a pass: each split moved to ``device``, each entry's
+    generators seeded from its seed (``_generators``). ``faults`` (one
+    FaultSpec or None per entry) gives every entry a ledger of its own;
+    without it the entries share one prototype ledger. ``ledger`` is the
+    one ledger of a single-entry pass."""
+    if not (len(splits) == len(extractors) == len(ssl_cfgs) == len(seeds)):
+        raise ValueError("a fold needs one split, extractor list and SSL-config list per seed")
+    if faults is not None and len(faults) != len(seeds):
+        raise ValueError("faults needs one entry (FaultSpec or None) per stacked entry")
+    if ledger is not None and len(seeds) != 1:
+        raise ValueError("a ledger can be given to a single-entry pass only")
+    dev = resolve_device(device)
+    shared = None if faults is not None else (ledger if ledger is not None else CommLedger())
+    entries = []
+    for i, seed in enumerate(seeds):
+        host, draws = _generators(seed, dev)
+        own = shared if shared is not None else (ledger if ledger is not None else CommLedger())
+        entries.append(
+            _Entry(
+                seed, _to_device(splits[i], dev), extractors[i], ssl_cfgs[i],
+                None if faults is None else faults[i], host, draws, own,
+            )
+        )
+    return _Fold(entries, shared, cfg, _StepClock(dev))
+
+
+def _one_shot_pass(fold: _Fold) -> List[VFLResult]:
+    """Alg. 1 over every entry of ``fold`` at once. Each entry draws from
+    its own generators exactly what a single-seed run draws; step ③ is one
+    k-means search over all S·C·K gradient matrices, step ④ one stacked
+    SSL session (``engine.batched``), step ⑥ stacked fits. Leaves each
+    entry's ⑤ uploads (the server's view, few-shot's H_o) in ``reps``."""
+    cfg, clock, entries = fold.cfg, fold.clock, fold.entries
+    dev = entries[0].split.labels.device
+    num_classes = entries[0].split.num_classes
+    num_parties = fold.num_parties
+    for ent in entries:
+        ent.clients = _build_clients(ent.split, ent.specs, ent.ssl_cfgs, ent.host, dev)
+        ent.server = VFLServer(num_classes=ent.split.num_classes)
 
     # ① clients upload overlap representations; a party dropped before it
     # never shows up and the server holds zeros in its slot
-    reps = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(clients, split.aligned)]
-    if fault is not None:
-        reps = [
-            torch.zeros_like(r) if fault.drops(k, POINT_UPLOAD1) else r
-            for k, r in enumerate(_dp_all(reps, fault, seed, faults.PHASE_UPLOAD1))
-        ]
-    _log_round(ledger, "up", "reps_overlap", reps, _skips(fault, num_parties, POINT_UPLOAD1))
-    stale = reps  # the server's last view of every party, for ⑤'s reconstruction
+    for ent in entries:
+        reps = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(ent.clients, ent.split.aligned)]
+        if ent.fault is not None:
+            reps = [
+                torch.zeros_like(r) if ent.fault.drops(k, POINT_UPLOAD1) else r
+                for k, r in enumerate(_dp_all(reps, ent.fault, ent.seed, faults.PHASE_UPLOAD1))
+            ]
+        ent.reps = reps
+    fold.log("up", "reps_overlap", [e.reps for e in entries], POINT_UPLOAD1)
+    stale = [e.reps for e in entries]  # the server's last view, for ⑤'s reconstruction
     clock.lap("1_extract")
 
     # ② server computes and sends partial gradients (+ C), optionally noised
-    grads = server.partial_gradients([r.float() for r in reps], split.labels, host)
-    if cfg.grad_dp_sigma > 0:
-        noise = [torch.randn(g.shape, generator=draws, device=dev) for g in grads]
-        grads = [g + cfg.grad_dp_sigma * g.std(correction=0) * n for g, n in zip(grads, noise)]
-    grads = [g.to(cfg.rep_dtype) for g in grads]
-    _log_round(ledger, "down", "partial_grads", grads, _skips(fault, num_parties, POINT_SSL))
+    grads_all = []
+    for ent in entries:
+        grads = ent.server.partial_gradients([r.float() for r in ent.reps], ent.split.labels, ent.host)
+        if cfg.grad_dp_sigma > 0:
+            noise = [torch.randn(g.shape, generator=ent.draws, device=dev) for g in grads]
+            grads = [g + cfg.grad_dp_sigma * g.std(correction=0) * n for g, n in zip(grads, noise)]
+        grads_all.append([g.to(cfg.rep_dtype) for g in grads])
+    fold.log("down", "partial_grads", grads_all, POINT_SSL)
     clock.lap("2_partial_grads")
 
-    # ③ gradient k-means → pseudo-labels; one batched search when the
-    # parties' gradient matrices share a shape
-    km = (num_classes, cfg.kmeans_iters, KMEANS_RESTARTS)
-    if len({tuple(g.shape) for g in grads}) == 1:
-        stacked = torch.stack(grads).float()
-        pseudo = list(dispatch.pseudo_labels_batched(stacked, *km, generator=draws))
-    else:
-        pseudo = [dispatch.pseudo_labels(g.float(), *km, generator=draws) for g in grads]
-    purity = [cluster_purity(p, split.labels, num_classes) for p in pseudo]
+    # ③ gradient k-means → pseudo-labels: one search over every entry's
+    # parties when all their gradient matrices share a shape
+    km_info: dict = {}
+    pseudo_all = batched.pseudo_labels_seeds(
+        grads_all,
+        num_classes,
+        cfg.kmeans_iters,
+        KMEANS_RESTARTS,
+        generators=[e.draws for e in entries],
+        info=km_info,
+    )
     clock.lap("3_kmeans")
 
-    # ④ local SSL, one party after another; a padded split's mask keeps its
-    # duplicate rows out of the labeled loss. Under a fault every party's
-    # session gets a commit mask (all zeros where the party skips SSL).
+    # ④ local SSL; a padded split's mask keeps its duplicate rows out of the
+    # labeled loss. Under a fault every party's session gets a commit mask
+    # (all zeros where the party skips SSL).
     hp = cfg.ssl_hparams()
-    ssl_metrics = []
-    for c, y_k, x_o, x_u in zip(clients, pseudo, split.aligned, split.unaligned):
-        sv = None
-        if fault is not None:
-            sv = faults.fault_step_valid(
-                fault, c.index, x_o.shape[0], hp, skip_all=fault.skips_ssl(c.index)
+    tasks_all = []
+    for ent, pseudo in zip(entries, pseudo_all):
+        tasks = []
+        for c, y_k, x_o, x_u in zip(ent.clients, pseudo, ent.split.aligned, ent.split.unaligned):
+            sv = None
+            if fold.faulted:  # every entry of a faulted fold gets a mask: one stacked shape
+                skip = ent.fault is not None and ent.fault.skips_ssl(c.index)
+                sv = faults.fault_step_valid(ent.fault, c.index, x_o.shape[0], hp, skip_all=skip)
+            tasks.append(
+                ssl_task_for(c, x_o, y_k, x_u, labeled_mask=ent.split.aligned_mask, step_valid=sv)
             )
-        task = ssl_task_for(c, x_o, y_k, x_u, labeled_mask=split.aligned_mask, step_valid=sv)
-        ssl_metrics.append(train_party_ssl(task, hp, seed_from(host), generator=draws))
+        tasks_all.append(tasks)
+    seeds0 = [[seed_from(e.host) for _ in tasks] for e, tasks in zip(entries, tasks_all)]
+    metrics_all, paths = batched.train_clients_ssl_seeds(
+        tasks_all, hp, seeds0, [e.draws for e in entries], cfg.engine_mode
+    )
     clock.lap("4_local_ssl")
 
     # ⑤ refreshed representations (a party dropped by now is rebuilt by
     # Eq. 10 from the ① view);  ⑥ the server fits its classifier
-    reps = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(clients, split.aligned)]
-    if fault is not None:
-        reps = _dp_all(reps, fault, seed, faults.PHASE_UPLOAD2)
-        reps = faults.reconstruct_dropped(reps, stale, fault, POINT_UPLOAD2, rebuilt)
-    _log_round(
-        ledger, "up", "reps_overlap_refreshed", reps, _skips(fault, num_parties, POINT_UPLOAD2)
+    reps_all = []
+    for ent in entries:
+        reps = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(ent.clients, ent.split.aligned)]
+        if ent.fault is not None:
+            reps = _dp_all(reps, ent.fault, ent.seed, faults.PHASE_UPLOAD2)
+        reps_all.append(reps)
+    reps_all = faults.reconstruct_dropped_seeds(
+        reps_all, stale, [e.fault for e in entries], POINT_UPLOAD2, [e.rebuilt for e in entries]
     )
+    for ent, reps in zip(entries, reps_all):
+        ent.reps = reps
+    fold.log("up", "reps_overlap_refreshed", reps_all, POINT_UPLOAD2)
     clock.lap("5_refresh")
-    server.train_classifier(
-        [r.float() for r in reps],
-        split.labels,
+    train_classifier_seeds(
+        [e.server for e in entries],
+        [[r.float() for r in reps] for reps in reps_all],
+        [e.split.labels for e in entries],
         epochs=cfg.server_epochs,
         batch_size=cfg.batch_size,
         learning_rate=cfg.server_lr,
-        generator=host,
+        generators=[e.host for e in entries],
     )
     clock.lap("6_server_fit")
 
-    name, metric = _evaluate(server, clients, split, fault, reps, seed, rebuilt)
+    results = []
+    for ent, pseudo, metrics, path in zip(entries, pseudo_all, metrics_all, paths):
+        name, metric = _evaluate(
+            ent.server, ent.clients, ent.split, ent.fault, ent.reps, ent.seed, ent.rebuilt
+        )
+        labels = ent.split.labels
+        ent.diags = {
+            "kmeans_purity": [cluster_purity(p, labels, num_classes) for p in pseudo],
+            "pseudo_labels": pseudo,
+            "ssl_metrics": metrics,
+            "ssl_steps": [schedule_steps(x.shape[0], hp) for x in ent.split.aligned],
+            "step_ms": clock.ms,
+            "seed_fold": len(entries),
+            "kernel_fold": km_info.get("fold", 1),
+            "engine_path": path,
+            "device_fold": 1,
+        }
+        if "fallback" in km_info:
+            ent.diags["kernel_fallback"] = km_info["fallback"]
+        if fold.faulted:
+            ent.diags.update(
+                faults.fault_diags(ent.fault, num_parties, metric), fault_reconstruct=ent.rebuilt
+            )
+        results.append(
+            VFLResult(name, metric, ent.ledger, ent.clients, ent.server, tuple(ent.specs), cfg, ent.diags)
+        )
     clock.lap("eval")
-    diags: Dict = {
-        "kmeans_purity": purity,
-        "pseudo_labels": pseudo,
-        "ssl_metrics": ssl_metrics,
-        "ssl_steps": [schedule_steps(x.shape[0], hp) for x in split.aligned],
-        "step_ms": clock.ms,
-    }
-    if fault is not None:
-        diags.update(faults.fault_diags(fault, num_parties, metric), fault_reconstruct=rebuilt)
-    result = VFLResult(name, metric, ledger, clients, server, tuple(extractors), cfg, diags)
-    return result, reps
+    return results
+
+
+def _one_shot_seeds(
+    seeds: Sequence[int],
+    splits: Sequence[VerticalSplit],
+    extractors: Sequence[Sequence[ExtractorSpec]],
+    ssl_cfgs: Sequence[Sequence[SSLConfig]],
+    cfg: Optional[ProtocolConfig] = None,
+    device: DeviceLike = None,
+    faults: Optional[Sequence[Optional[FaultSpec]]] = None,
+    ledger: Optional[CommLedger] = None,
+) -> List[VFLResult]:
+    """Alg. 1 over S entries at once (seeds, or scenarios × seeds flattened
+    scenario-major). Unfaulted, every result holds the one prototype ledger
+    (callers copy it per result); with ``faults`` each entry has its own."""
+    cfg = cfg if cfg is not None else ProtocolConfig()
+    fold = _fold(seeds, splits, extractors, ssl_cfgs, cfg, device, faults, ledger)
+    return _one_shot_pass(fold)
 
 
 def run_one_shot(
@@ -357,19 +525,16 @@ def run_one_shot(
 ) -> VFLResult:
     """Alg. 1 one-shot VFL on ``split``: K parties with the extractors of
     ``extractors`` and the SSL recipes of ``ssl_cfgs``, under ``fault`` if
-    given. The split is moved to ``device`` first. ``diagnostics`` carries
-    the k-means purity, the SSL sessions' last metrics and steps, and each
-    step's time (``step_ms``); under a fault also ``faults.fault_diags``'s
-    keys and ``fault_reconstruct``, each Eq. 10 reconstruction's inputs and
-    output (⑤, then the evaluation)."""
-    cfg = cfg if cfg is not None else ProtocolConfig()
-    ledger = ledger if ledger is not None else CommLedger()
-    dev = resolve_device(device)
-    split = _to_device(split, dev)
-    host, draws = _generators(seed, dev)
-    clock = _StepClock(dev)
-    return _one_shot_pass(
-        split, extractors, ssl_cfgs, cfg, ledger, host, draws, clock, fault, seed
+    given; the S = 1 case of :func:`run_seeds`. The split is moved to
+    ``device`` first. ``diagnostics`` carries the k-means purity, the SSL
+    sessions' last metrics and steps, each step's time (``step_ms``), and
+    the fold record (``seed_fold``, ``kernel_fold``, ``engine_path``,
+    ``device_fold``); under a fault also ``faults.fault_diags``'s keys and
+    ``fault_reconstruct``, each Eq. 10 reconstruction's inputs and output
+    (⑤, then the evaluation)."""
+    return _one_shot_seeds(
+        [seed], [split], [extractors], [ssl_cfgs], cfg, device,
+        None if fault is None else [fault], ledger,
     )[0]
 
 
@@ -441,6 +606,156 @@ def _rate(mask: torch.Tensor) -> float:
     return float(mask.float().mean()) if mask.numel() else 0.0
 
 
+def _few_shot_pass(fold: _Fold) -> List[VFLResult]:
+    """Alg. 2 over every entry of ``fold``: the one-shot pass, then one more
+    round trip, each step over all entries at once (the aux fits stacked,
+    ③' one ``sdpa_estimator`` launch a party over the stacked axis, ⑤' one
+    stacked session, ⑥' stacked fits). See :func:`run_few_shot`."""
+    cfg, clock, entries = fold.cfg, fold.clock, fold.entries
+    ones = _one_shot_pass(fold)
+    num_parties = fold.num_parties
+    h_o_all = [e.reps for e in entries]  # the ⑤ uploads: the server's H_o
+    for ent, one in zip(entries, ones):
+        ent.diags = dict(one.diagnostics, one_shot_metric=one.metric)
+    gone = [_skips(e.fault, num_parties, POINT_ROUND2) for e in entries]
+
+    # ①' unaligned reps go up in the ⑤ upload's round
+    h_u_all = []
+    for ent in entries:
+        h_u = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(ent.clients, ent.split.unaligned)]
+        if ent.fault is not None:
+            h_u = _dp_all(h_u, ent.fault, ent.seed, faults.PHASE_UNALIGNED)
+        h_u_all.append(h_u)
+    fold.log("up", "reps_unaligned", h_u_all, POINT_ROUND2, new_round=False)
+    clock.lap("1p_unaligned")
+
+    # ②' the server fits f_c^k on each H_o^k (f_c is ⑥'s)
+    fit_aux_classifiers_seeds(
+        [e.server for e in entries],
+        [[h.float() for h in h_o] for h_o in h_o_all],
+        [e.split.labels for e in entries],
+        epochs=cfg.server_epochs,
+        batch_size=cfg.batch_size,
+        learning_rate=cfg.server_lr,
+        generators=[e.host for e in entries],
+    )
+    clock.lap("2p_aux_fit")
+
+    # ③' Eq. 10 estimates + Eq. 8-9 gate, one party at a time over the
+    # stacked entries;  ④' p̂ goes down
+    servers = [e.server for e in entries]
+    h_o_stacks = [torch.stack([h_o[j] for h_o in h_o_all]) for j in range(num_parties)]
+    probs_all: List[List[torch.Tensor]] = [[] for _ in entries]
+    ests_all: List[List[List[torch.Tensor]]] = [[] for _ in entries]
+    for k in range(num_parties):
+        ests: List[torch.Tensor] = []
+        h_u_stack = torch.stack([h_u[k] for h_u in h_u_all])
+        probs = batched.fewshot_probs_seeds(
+            servers, k, h_u_stack, h_o_stacks, cfg.fewshot_threshold, ests
+        )
+        for e in range(len(entries)):
+            probs_all[e].append(probs[e])
+            ests_all[e].append([est[e] for est in ests])
+    fold.log("down", "pseudo_label_probs", probs_all, POINT_ROUND2)
+    joints = [srv.classifier for srv in servers]  # the f_c that gated (⑥' replaces it)
+    clock.lap("3p_estimate_gate")
+
+    # ⑤' each party adds its gated rows to the labeled set and re-runs SSL;
+    # a party absent from round 2 gates nothing in and commits no step
+    hp = cfg.ssl_hparams()
+    tasks_all, takes_all = [], []
+    for ent, probs, absent_k in zip(entries, probs_all, gone):
+        tasks, takes = [], []
+        for c, x_o, x_u, p, y_o in zip(
+            ent.clients, ent.split.aligned, ent.split.unaligned, probs, ent.diags["pseudo_labels"]
+        ):
+            absent, sv = False, None
+            if ent.fault is not None:
+                absent = ent.fault.skips_ssl(c.index) or absent_k[c.index]
+            if fold.faulted:
+                n_lab = x_o.shape[0] + x_u.shape[0]
+                sv = faults.fault_step_valid(ent.fault, c.index, n_lab, hp, skip_all=absent)
+            task, take = fewshot_task(
+                c, x_o, x_u, p, y_o, cfg, ent.draws, ent.split.aligned_mask, absent, sv
+            )
+            tasks.append(task)
+            takes.append(take)
+        tasks_all.append(tasks)
+        takes_all.append(takes)
+    seeds0 = [[seed_from(e.host) for _ in tasks] for e, tasks in zip(entries, tasks_all)]
+    metrics_all, paths = batched.train_clients_ssl_seeds(
+        tasks_all, hp, seeds0, [e.draws for e in entries], cfg.engine_mode
+    )
+    clock.lap("5p_local_ssl")
+
+    # ⑥' final overlap reps go up (a party dropped by round 2 is rebuilt by
+    # Eq. 10 over the ⑤ view); the server re-fits a fresh f_c on them
+    reps_all = []
+    for ent in entries:
+        reps = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(ent.clients, ent.split.aligned)]
+        if ent.fault is not None:
+            reps = _dp_all(reps, ent.fault, ent.seed, faults.PHASE_FINAL)
+        reps_all.append(reps)
+    reps_all = faults.reconstruct_dropped_seeds(
+        reps_all, h_o_all, [e.fault for e in entries], POINT_ROUND2, [e.rebuilt for e in entries]
+    )
+    fold.log("up", "reps_overlap_final", reps_all, POINT_ROUND2)
+    train_classifier_seeds(
+        servers,
+        [[r.float() for r in reps] for reps in reps_all],
+        [e.split.labels for e in entries],
+        epochs=cfg.server_epochs,
+        batch_size=cfg.batch_size,
+        learning_rate=cfg.server_lr,
+        generators=[e.host for e in entries],
+    )
+    clock.lap("6p_server_refit")
+
+    results = []
+    for i, ent in enumerate(entries):
+        name, metric = _evaluate(
+            ent.server, ent.clients, ent.split, ent.fault, reps_all[i], ent.seed, ent.rebuilt
+        )
+        diags = ent.diags
+        if fold.faulted:
+            diags.update(
+                faults.fault_diags(ent.fault, num_parties, metric), fault_reconstruct=ent.rebuilt
+            )
+        diags.update(
+            fewshot_step3p=dict(
+                h_u=h_u_all[i], h_o=h_o_all[i], estimates=ests_all[i], probs=probs_all[i],
+                joint=joints[i],
+            ),
+            fewshot_gate_rate=[_rate(p > 0) for p in probs_all[i]],
+            fewshot_take_rate=[_rate(take) for take in takes_all[i]],
+            ssl_metrics=diags["ssl_metrics"] + metrics_all[i],
+            fewshot_ssl_steps=[schedule_steps(t.x_labeled.shape[0], hp) for t in tasks_all[i]],
+            sdpa_fold=len(entries),
+            engine_path=paths[i],
+        )
+        results.append(
+            VFLResult(name, metric, ent.ledger, ent.clients, ent.server, tuple(ent.specs), cfg, diags)
+        )
+    clock.lap("eval_few_shot")
+    return results
+
+
+def _few_shot_seeds(
+    seeds: Sequence[int],
+    splits: Sequence[VerticalSplit],
+    extractors: Sequence[Sequence[ExtractorSpec]],
+    ssl_cfgs: Sequence[Sequence[SSLConfig]],
+    cfg: Optional[ProtocolConfig] = None,
+    device: DeviceLike = None,
+    faults: Optional[Sequence[Optional[FaultSpec]]] = None,
+    ledger: Optional[CommLedger] = None,
+) -> List[VFLResult]:
+    """Alg. 2 over S entries at once; ledgers as :func:`_one_shot_seeds`'s."""
+    cfg = cfg if cfg is not None else ProtocolConfig()
+    fold = _fold(seeds, splits, extractors, ssl_cfgs, cfg, device, faults, ledger)
+    return _few_shot_pass(fold)
+
+
 def run_few_shot(
     seed: int,
     split: VerticalSplit,
@@ -453,24 +768,72 @@ def run_few_shot(
 ) -> VFLResult:
     """Alg. 2 few-shot VFL on ``split``: the one-shot pass of
     :func:`run_one_shot` at the same seed and ``fault``, then one more round
-    trip (①'-⑥'). A party dropped by round 2 logs none of its events, gates
-    nothing in and commits no ⑤' step; the server rebuilds its ⑥' upload by
-    Eq. 10 over the ⑤ view.
+    trip (①'-⑥'); the S = 1 case of :func:`run_seeds`. A party dropped by
+    round 2 logs none of its events, gates nothing in and commits no ⑤'
+    step; the server rebuilds its ⑥' upload by Eq. 10 over the ⑤ view.
     ``diagnostics`` adds to the one-shot pass's: its metric
     (``one_shot_metric``), step ③''s inputs and outputs (``fewshot_step3p``:
     H_u^k, the ⑤ uploads H_o^k, the Eq. 10 estimates of each party, p̂, and
     the joint f_c that gated them), the per-party gate and take rates, the
     ⑤' sessions' last metrics (appended to ``ssl_metrics``) and steps
-    (``fewshot_ssl_steps``), and each round-2 step's time in ``step_ms``;
-    under a fault, the fault diagnostics of the few-shot metric and every
-    reconstruction of both rounds in ``fault_reconstruct``."""
+    (``fewshot_ssl_steps``), ``sdpa_fold``, and each round-2 step's time in
+    ``step_ms``; under a fault, the fault diagnostics of the few-shot metric
+    and every reconstruction of both rounds in ``fault_reconstruct``."""
+    return _few_shot_seeds(
+        [seed], [split], [extractors], [ssl_cfgs], cfg, device,
+        None if fault is None else [fault], ledger,
+    )[0]
+
+
+def _few_shot_finetune_seeds(
+    seeds: Sequence[int],
+    splits: Sequence[VerticalSplit],
+    extractors: Sequence[Sequence[ExtractorSpec]],
+    ssl_cfgs: Sequence[Sequence[SSLConfig]],
+    cfg: Optional[ProtocolConfig] = None,
+    finetune_iterations: int = 200,
+    device: DeviceLike = None,
+    faults: Optional[Sequence[Optional[FaultSpec]]] = None,
+) -> List[VFLResult]:
+    """Tab. 1's last row over S entries: the few-shot fold, then
+    ``baselines.run_vanilla`` on each entry, from its trained state, on its
+    copy of the fold's ledger (see :func:`run_few_shot_finetune`)."""
+    from repro_torch.core import baselines  # deferred: baselines imports this module
+
+    if faults is not None and any(f is not None for f in faults):
+        raise ValueError(
+            "few_shot_finetune does not support fault injection: the chained finetune "
+            "stage is the iterative round loop; model its dropout cost with "
+            "baselines.run_vanilla(fault=...) instead"
+        )
     cfg = cfg if cfg is not None else ProtocolConfig()
-    ledger = ledger if ledger is not None else CommLedger()
-    dev = resolve_device(device)
-    split = _to_device(split, dev)
-    host, draws = _generators(seed, dev)
-    clock = _StepClock(dev)
-    return _few_shot_pass(split, extractors, ssl_cfgs, cfg, ledger, host, draws, clock, fault, seed)
+    fold = _fold(seeds, splits, extractors, ssl_cfgs, cfg, device, None)
+    fews = _few_shot_pass(fold)
+    it_cfg = baselines.IterativeConfig(
+        iterations=finetune_iterations,
+        batch_size=cfg.batch_size,
+        client_lr=cfg.client_lr / 10,
+        server_lr=cfg.server_lr / 10,
+    )
+    results = []
+    for ent, few in zip(fold.entries, fews):
+        ledger = few.ledger if len(fews) == 1 else _copy_ledger(few.ledger)
+        res = baselines.run_vanilla(
+            seed_from(ent.host),
+            ent.split,
+            ent.specs,
+            ent.ssl_cfgs,
+            it_cfg,
+            clients=few.clients,
+            server=few.server,
+            ledger=ledger,
+            device=ent.split.labels.device,
+        )
+        step_ms = dict(few.diagnostics["step_ms"])
+        step_ms.update({f"finetune_{k}": v for k, v in res.diagnostics["step_ms"].items()})
+        res.diagnostics.update(few.diagnostics, fewshot_metric=few.metric, step_ms=step_ms)
+        results.append(res)
+    return results
 
 
 def run_few_shot_finetune(
@@ -493,145 +856,187 @@ def run_few_shot_finetune(
     ``step_ms`` the few-shot steps then the finetune's as ``finetune_*``.
     A ``fault`` is refused: the finetune is the iterative round loop, whose
     dropout cost ``baselines.run_vanilla(fault=...)`` models."""
-    from repro_torch.core import baselines  # deferred: baselines imports this module
+    return _few_shot_finetune_seeds(
+        [seed], [split], [extractors], [ssl_cfgs], cfg, finetune_iterations, device,
+        None if fault is None else [fault],
+    )[0]
 
-    if fault is not None:
+
+# ---------------------------------------------------- multi-seed orchestrator
+def _splits_are_homogeneous(splits: Sequence[VerticalSplit]) -> bool:
+    """True when every split shares all shapes and the class count: the
+    precondition of a fold (communication is then entry-invariant)."""
+    s0 = split_signature(splits[0])
+    return all(split_signature(sp) == s0 for sp in splits[1:])
+
+
+def _copy_ledger(ledger: CommLedger) -> CommLedger:
+    return CommLedger(events=list(ledger.events), _round_counter=ledger._round_counter)
+
+
+def _assert_ledgers_identical(ledgers: Sequence[CommLedger]) -> None:
+    l0 = ledgers[0]
+    for i, led in enumerate(ledgers[1:], start=1):
+        if (
+            led.total_bytes() != l0.total_bytes()
+            or led.comm_times() != l0.comm_times()
+            or led.by_tag() != l0.by_tag()
+        ):
+            raise ValueError(
+                f"seed {i} produced a different communication ledger than seed 0: multi-seed "
+                f"runs of one scenario point must be byte-identical ({led.total_bytes()} vs "
+                f"{l0.total_bytes()} bytes)"
+            )
+
+
+def _run_one_scenario_seeds(
+    runner, entry, seeds, splits, extractors, ssl_cfgs, cfg, device, faults=None, **kw
+) -> List[VFLResult]:
+    """One scenario's S seeds when the cross-scenario fold does not apply:
+    the registered ``*_seeds`` impl when the seeds share one shape, else a
+    per-seed loop of the runner (ledger byte-identity asserted after)."""
+    impl = entry.seeds_impl if entry is not None else None
+    if impl is not None and _splits_are_homogeneous(splits):
+        if faults is not None:
+            kw["faults"] = list(faults)
+        results = impl(list(seeds), list(splits), list(extractors), list(ssl_cfgs), cfg, device=device, **kw)
+        if len(results) > 1:  # the shared prototype ledger → per-seed copies
+            for res in results:
+                res.ledger = _copy_ledger(res.ledger)
+    else:
+        results = [
+            runner(s, sp, ex, sc, cfg, device=device,
+                   **(kw if faults is None else {**kw, "fault": faults[i]}))
+            for i, (s, sp, ex, sc) in enumerate(zip(seeds, splits, extractors, ssl_cfgs))
+        ]
+        if faults is None or all(f is None for f in faults):
+            _assert_ledgers_identical([r.ledger for r in results])
+        for res in results:
+            res.diagnostics["seed_fold"] = 1
+    for res in results:
+        res.diagnostics.setdefault("scenario_fold", 1)
+        res.diagnostics.setdefault("device_fold", 1)
+    return results
+
+
+def run_scenarios_seeds(
+    runner,
+    seeds: Sequence[Sequence[int]],
+    splits: Sequence[Sequence[VerticalSplit]],
+    extractors: Sequence[Sequence[Sequence[ExtractorSpec]]],
+    ssl_cfgs: Sequence[Sequence[Sequence[SSLConfig]]],
+    cfg=None,
+    device: DeviceLike = None,
+    **runner_kwargs,
+) -> List[List[VFLResult]]:
+    """C grouped scenarios × S seeds as ONE folded sweep. Arguments are
+    rectangular C×S grids (``seeds[c][s]`` …); returns the results on the
+    same grid.
+
+    The stacked axis is anonymous, so a group of scenarios whose splits
+    share one shape signature flattens scenario-major into the registered
+    ``*_seeds`` impl like extra seeds: one stacked S·C·K SSL session, one
+    k-means search, stacked server fits. Session-cache keys carry no batch
+    width, so a C ≥ 2 fold against a warm C = 1 cache builds nothing fresh.
+    Each result's ``diagnostics["seed_fold"]`` / ``["scenario_fold"]`` record
+    the fold that ran. Grids whose splits differ in shape, runners whose
+    impl does not fold (the iterative baselines, for now) and unregistered
+    runners go scenario by scenario (``scenario_fold`` 1); :func:`run_seeds`
+    is the C = 1 case. ``faults`` is an optional C×S grid of FaultSpecs,
+    carried as per-entry data. Per-seed state kwargs are refused."""
+    from repro_torch.core import runners as registry  # deferred: the registry imports this module
+
+    num_scenarios = len(seeds)
+    if not (len(splits) == len(extractors) == len(ssl_cfgs) == num_scenarios):
         raise ValueError(
-            "few_shot_finetune does not support fault injection: the chained finetune "
-            "stage is the iterative round loop; model its dropout cost with "
-            "baselines.run_vanilla(fault=...) instead"
+            "run_scenarios_seeds needs one per-seed list of seeds / splits / extractor "
+            "lists / ssl-config lists per scenario"
         )
-    cfg = cfg if cfg is not None else ProtocolConfig()
-    dev = resolve_device(device)
-    split = _to_device(split, dev)
-    host, draws = _generators(seed, dev)
-    few = _few_shot_pass(
-        split, extractors, ssl_cfgs, cfg, CommLedger(), host, draws, _StepClock(dev)
-    )
-    it_cfg = baselines.IterativeConfig(
-        iterations=finetune_iterations,
-        batch_size=cfg.batch_size,
-        client_lr=cfg.client_lr / 10,
-        server_lr=cfg.server_lr / 10,
-    )
-    res = baselines.run_vanilla(
-        seed_from(host),
-        split,
-        extractors,
-        ssl_cfgs,
-        it_cfg,
-        clients=few.clients,
-        server=few.server,
-        ledger=few.ledger,
-        device=dev,
-    )
-    step_ms = dict(few.diagnostics["step_ms"])
-    step_ms.update({f"finetune_{k}": v for k, v in res.diagnostics["step_ms"].items()})
-    res.diagnostics.update(few.diagnostics, fewshot_metric=few.metric, step_ms=step_ms)
-    return res
-
-
-def _few_shot_pass(
-    split: VerticalSplit,
-    extractors: Sequence[ExtractorSpec],
-    ssl_cfgs: Sequence[SSLConfig],
-    cfg: ProtocolConfig,
-    ledger: CommLedger,
-    host: torch.Generator,
-    draws: torch.Generator,
-    clock: _StepClock,
-    fault: Optional[FaultSpec] = None,
-    seed: int = 0,
-) -> VFLResult:
-    """Alg. 2 on a split already on its device, drawing from the caller's
-    generators (see :func:`run_few_shot`)."""
-    one, h_o = _one_shot_pass(
-        split, extractors, ssl_cfgs, cfg, ledger, host, draws, clock, fault, seed
-    )
-    clients, server = one.clients, one.server
-    diags = dict(one.diagnostics, one_shot_metric=one.metric)
-    num_parties = len(clients)
-    gone = _skips(fault, num_parties, POINT_ROUND2)  # absent from every round-2 event
-    rebuilt = list(diags.get("fault_reconstruct", ()))
-
-    # ①' unaligned reps go up in the ⑤ upload's round
-    h_u = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(clients, split.unaligned)]
-    if fault is not None:
-        h_u = _dp_all(h_u, fault, seed, faults.PHASE_UNALIGNED)
-    r5 = max(e.round for e in ledger.events)
-    for k, h in enumerate(h_u):
-        if gone is None or not gone[k]:
-            ledger.log_bytes(k, "up", "reps_unaligned", nbytes(h), round=r5)
-    clock.lap("1p_unaligned")
-
-    # ②' the server fits f_c^k on each H_o^k (f_c is ⑥'s)
-    server.fit_aux_classifiers(
-        [h.float() for h in h_o],
-        split.labels,
-        epochs=cfg.server_epochs,
-        batch_size=cfg.batch_size,
-        learning_rate=cfg.server_lr,
-        generator=host,
-    )
-    clock.lap("2p_aux_fit")
-
-    # ③' Eq. 10 estimates + Eq. 8-9 gate per party;  ④' p̂ goes down
-    ests: List[List[torch.Tensor]] = [[] for _ in h_u]
-    probs = [
-        dispatch.fewshot_probs(server, k, h, h_o, cfg.fewshot_threshold, ests[k])
-        for k, h in enumerate(h_u)
-    ]
-    _log_round(ledger, "down", "pseudo_label_probs", probs, gone)
-    clock.lap("3p_estimate_gate")
-    step3p = dict(h_u=h_u, h_o=h_o, estimates=ests, probs=probs, joint=server.classifier)
-
-    # ⑤' each party adds its gated rows to the labeled set and re-runs SSL;
-    # a party absent from round 2 gates nothing in and commits no step
-    hp = cfg.ssl_hparams()
-    tasks = []
-    for c, x_o, x_u, p, y_o in zip(
-        clients, split.aligned, split.unaligned, probs, diags["pseudo_labels"]
+    if num_scenarios == 0:
+        return []
+    num_seeds = len(seeds[0])
+    for c in range(num_scenarios):
+        if not (len(seeds[c]) == len(splits[c]) == len(extractors[c]) == len(ssl_cfgs[c]) == num_seeds):
+            raise ValueError(
+                "run_scenarios_seeds needs a rectangular C×S grid: every scenario must carry "
+                "the same per-seed list lengths"
+            )
+    entry = registry.resolve(runner)
+    registry.reject_stateful_kwargs("run_scenarios_seeds", runner_kwargs, entry)
+    faults = runner_kwargs.pop("faults", None)
+    if faults is not None:
+        if len(faults) != num_scenarios or any(len(row) != num_seeds for row in faults):
+            raise ValueError(
+                "faults must mirror the C×S grid: one entry (FaultSpec or None) per scenario per seed"
+            )
+        if not any(f is not None for row in faults for f in row):
+            faults = None
+    flat_splits = [sp for row in splits for sp in row]
+    if (
+        entry is not None
+        and entry.folds
+        and num_scenarios > 1
+        and _splits_are_homogeneous(flat_splits)
     ):
-        absent, sv = False, None
-        if fault is not None:
-            absent = fault.skips_ssl(c.index) or gone[c.index]
-            n_lab = x_o.shape[0] + x_u.shape[0]
-            sv = faults.fault_step_valid(fault, c.index, n_lab, hp, skip_all=absent)
-        tasks.append(
-            fewshot_task(c, x_o, x_u, p, y_o, cfg, draws, split.aligned_mask, absent, sv)
+        kw = dict(runner_kwargs)
+        if faults is not None:
+            kw["faults"] = [f for row in faults for f in row]
+        results = entry.seeds_impl(
+            [s for row in seeds for s in row],
+            flat_splits,
+            [e for row in extractors for e in row],
+            [s for row in ssl_cfgs for s in row],
+            cfg,
+            device=device,
+            **kw,
         )
-    ssl_metrics = [train_party_ssl(t, hp, seed_from(host), generator=draws) for t, _ in tasks]
-    clock.lap("5p_local_ssl")
+        for res in results:  # the shared prototype ledger → per-entry copies
+            res.ledger = _copy_ledger(res.ledger)
+            res.diagnostics["seed_fold"] = num_seeds
+            res.diagnostics["scenario_fold"] = num_scenarios
+            res.diagnostics.setdefault("device_fold", 1)
+        return [results[c * num_seeds : (c + 1) * num_seeds] for c in range(num_scenarios)]
+    return [
+        _run_one_scenario_seeds(
+            runner, entry, list(seeds[c]), list(splits[c]), list(extractors[c]),
+            list(ssl_cfgs[c]), cfg, device, None if faults is None else list(faults[c]),
+            **runner_kwargs,
+        )
+        for c in range(num_scenarios)
+    ]
 
-    # ⑥' final overlap reps go up (a party dropped by round 2 is rebuilt by
-    # Eq. 10 over the ⑤ view); the server re-fits a fresh f_c on them
-    reps = [c.extract(x).to(cfg.rep_dtype) for c, x in zip(clients, split.aligned)]
-    if fault is not None:
-        reps = _dp_all(reps, fault, seed, faults.PHASE_FINAL)
-        reps = faults.reconstruct_dropped(reps, h_o, fault, POINT_ROUND2, rebuilt)
-    _log_round(ledger, "up", "reps_overlap_final", reps, gone)
-    server.train_classifier(
-        [r.float() for r in reps],
-        split.labels,
-        epochs=cfg.server_epochs,
-        batch_size=cfg.batch_size,
-        learning_rate=cfg.server_lr,
-        generator=host,
-    )
-    clock.lap("6p_server_refit")
 
-    name, metric = _evaluate(server, clients, split, fault, reps, seed, rebuilt)
-    clock.lap("eval_few_shot")
-    if fault is not None:
-        diags.update(faults.fault_diags(fault, num_parties, metric), fault_reconstruct=rebuilt)
-    diags.update(
-        fewshot_step3p=step3p,
-        fewshot_gate_rate=[_rate(p > 0) for p in probs],
-        fewshot_take_rate=[_rate(take) for _, take in tasks],
-        ssl_metrics=diags["ssl_metrics"] + ssl_metrics,
-        fewshot_ssl_steps=[schedule_steps(t.x_labeled.shape[0], hp) for t, _ in tasks],
-    )
-    return VFLResult(name, metric, ledger, clients, server, tuple(extractors), cfg, diags)
+def run_seeds(
+    runner,
+    seeds: Sequence[int],
+    splits: Sequence[VerticalSplit],
+    extractors: Sequence[Sequence[ExtractorSpec]],
+    ssl_cfgs: Sequence[Sequence[SSLConfig]],
+    cfg=None,
+    device: DeviceLike = None,
+    **runner_kwargs,
+) -> List[VFLResult]:
+    """One scenario point over S seeds: the C = 1 case of
+    :func:`run_scenarios_seeds`. The protocol runners (``run_one_shot``,
+    ``run_few_shot``, ``run_few_shot_finetune``) fold their S·K SSL
+    sessions, k-means runs and server fits; each seed draws exactly what
+    its single-seed run draws, so ``run_seeds`` equals a loop of single-seed
+    runs up to the rounding of batched products, with byte-identical
+    ledgers (each result holds its own copy). The iterative baselines loop
+    per seed for now. ``faults`` is an optional per-seed list; per-seed
+    state kwargs (``clients``, ``server``, ``ledger``) are refused."""
+    if not (len(splits) == len(extractors) == len(ssl_cfgs) == len(seeds)):
+        raise ValueError("run_seeds needs one split / extractor list / ssl-config list per seed")
+    from repro_torch.core import runners as registry
+
+    registry.reject_stateful_kwargs("run_seeds", runner_kwargs, registry.resolve(runner))
+    faults = runner_kwargs.pop("faults", None)
+    if faults is not None:
+        runner_kwargs["faults"] = [list(faults)]
+    return run_scenarios_seeds(
+        runner, [list(seeds)], [list(splits)], [list(extractors)], [list(ssl_cfgs)], cfg,
+        device=device, **runner_kwargs,
+    )[0]
 
 
 def _to_device(split: VerticalSplit, dev: torch.device) -> VerticalSplit:

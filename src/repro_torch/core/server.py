@@ -4,8 +4,10 @@ Counterpart of ``repro.core.server`` for steps ② and ⑥ and few-shot's aux
 classifiers (②'). The server owns Y_o, θ_c and the θ_c^k and sends clients
 only ∇_{H_o^k} L (and C) and p̂. A fit is a Python loop
 over the numpy-seeded schedule of ``_fit_schedule`` (clip 5.0, SGD with
-momentum 0.9); the reference's cached ``lax.scan`` session has no
-counterpart.
+momentum 0.9). :func:`train_classifier_seeds` and
+:func:`fit_aux_classifiers_seeds` are the folds' form: every entry draws its
+heads and schedule seeds from its own CPU generator, in the single-seed
+order, and the fits train stacked (``engine.batched.fit_sessions_batched``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 
 from repro_torch.core.ssl import cross_entropy
 from repro_torch.data.loader import epoch_batches
+from repro_torch.engine.batched import fit_sessions_batched
 from repro_torch.engine.local_ssl import seed_from
 from repro_torch.models.extractors import make_classifier
 from repro_torch.optim import ClippedSGD
@@ -52,9 +55,7 @@ class VFLServer:
         over the schedule of ``seed0`` (unless given, drawn next from the
         same generator)."""
         h = h.detach()
-        clf = self._fresh_classifier(h.shape[-1], generator, h.device)
-        seed0 = seed_from(generator) if seed0 is None else seed0
-        schedule = fit_schedule(seed0, h.shape[0], epochs, batch_size)
+        clf, schedule = _fresh_fit(self, h, epochs, batch_size, generator, seed0)
         if schedule is not None:
             fit(clf, h, labels, schedule, learning_rate)
         return clf
@@ -152,3 +153,63 @@ def fit(
         loss = cross_entropy(model(x[idx[i]]), y[idx[i]]).mean()
         opt.step(torch.autograd.grad(loss, params))
     return model
+
+
+def _fresh_fit(
+    server: VFLServer,
+    h: torch.Tensor,
+    epochs: int,
+    batch_size: int,
+    generator: torch.Generator,
+    seed0: Optional[int] = None,
+) -> tuple:
+    """A fresh head over ``h`` and its schedule (None: a no-op fit): the
+    head's init, then, unless ``seed0`` is given, the schedule seed, drawn
+    from ``generator`` in that order."""
+    clf = server._fresh_classifier(h.shape[-1], generator, h.device)
+    seed0 = seed_from(generator) if seed0 is None else seed0
+    return clf, fit_schedule(seed0, h.shape[0], epochs, batch_size)
+
+
+def train_classifier_seeds(
+    servers: Sequence[VFLServer],
+    reps_per_seed: Sequence[Sequence[torch.Tensor]],
+    labels_per_seed: Sequence[torch.Tensor],
+    epochs: int = 50,
+    batch_size: int = 32,
+    learning_rate: float = 0.01,
+    *,
+    generators: Sequence[torch.Generator],
+) -> None:
+    """:meth:`VFLServer.train_classifier` for every entry of a fold: entry
+    e's fresh f_c and schedule come from ``generators[e]``, and the fits
+    train stacked."""
+    hs = [concat_reps(reps).detach() for reps in reps_per_seed]
+    fresh = [_fresh_fit(srv, h, epochs, batch_size, g) for srv, h, g in zip(servers, hs, generators)]
+    fit_sessions_batched([c for c, _ in fresh], hs, labels_per_seed, [s for _, s in fresh], learning_rate)
+    for srv, (clf, _) in zip(servers, fresh):
+        srv.classifier = clf
+
+
+def fit_aux_classifiers_seeds(
+    servers: Sequence[VFLServer],
+    reps_per_seed: Sequence[Sequence[torch.Tensor]],
+    labels_per_seed: Sequence[torch.Tensor],
+    epochs: int = 50,
+    batch_size: int = 32,
+    learning_rate: float = 0.01,
+    *,
+    generators: Sequence[torch.Generator],
+) -> None:
+    """:meth:`VFLServer.fit_aux_classifiers` for every entry of a fold: entry
+    e's f_c^k and schedules come from ``generators[e]`` party by party, and
+    all S·C·K fits train stacked (one session a shape)."""
+    models, xs, ys, scheds = [], [], [], []
+    for srv, reps, labels, g in zip(servers, reps_per_seed, labels_per_seed, generators):
+        fresh = [_fresh_fit(srv, h.detach(), epochs, batch_size, g) for h in reps]
+        srv.aux_classifiers = [c for c, _ in fresh]
+        models += srv.aux_classifiers
+        xs += [h.detach() for h in reps]
+        ys += [labels] * len(reps)
+        scheds += [s for _, s in fresh]
+    fit_sessions_batched(models, xs, ys, scheds, learning_rate)

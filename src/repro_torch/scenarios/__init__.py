@@ -1,13 +1,22 @@
 """Scenario registry and catalog: named, parameterised VFL conditions.
 
-Counterpart of ``repro.scenarios`` without its grouping module. Importing
-the package registers the 27-entry catalog. ``CATALOG`` is the registry's
+Counterpart of ``repro.scenarios``. Importing the package registers the
+27-entry catalog; ``grouping`` partitions built scenarios into the groups
+one folded sweep can stack. ``CATALOG`` is the registry's
 mapping of name to spec; ``HARD_OVERLAP_32`` and ``HARD_OVERLAP_64`` are the
 parity and acceptance configurations.
 """
 
 from repro_torch.scenarios import catalog  # noqa: F401  (registers the catalog)
 from repro_torch.scenarios.faults import FaultSpec
+from repro_torch.scenarios.grouping import (
+    ScenarioGroup,
+    bundles_fold_compatible,
+    fold_signature,
+    group_scenarios,
+    partition,
+    split_signature,
+)
 from repro_torch.scenarios.registry import (
     CATALOG,
     GENERATORS,
@@ -32,12 +41,18 @@ __all__ = [
     "HARD_OVERLAP_32",
     "HARD_OVERLAP_64",
     "ScenarioBundle",
+    "ScenarioGroup",
     "ScenarioSpec",
     "build",
+    "bundles_fold_compatible",
     "by_tag",
     "extractor_specs_for",
+    "fold_signature",
     "get",
+    "group_scenarios",
     "names",
+    "partition",
     "register",
+    "split_signature",
     "ssl_configs_for",
 ]

@@ -274,13 +274,13 @@ def test_protocol_masks_the_two_ssl_sessions_and_nothing_else(name, monkeypatch)
     the duplicates, as the reference's do), so the ledger counts the padded
     rows: 3·2·64·16·4 = 24576 bytes one-shot."""
     tasks = []
-    train = tproto.train_party_ssl
+    train = tproto.batched.train_clients_ssl_seeds
 
-    def spy(task, *args, **kw):
-        tasks.append(task)
-        return train(task, *args, **kw)
+    def spy(tasks_per_seed, *args, **kw):
+        tasks.extend(t for seed_tasks in tasks_per_seed for t in seed_tasks)
+        return train(tasks_per_seed, *args, **kw)
 
-    monkeypatch.setattr(tproto, "train_party_ssl", spy)
+    monkeypatch.setattr(tproto.batched, "train_clients_ssl_seeds", spy)
     bundle = jscen.build(name, seed=0)
     split = split_from_numpy(bundle.split, "cpu")
     res = port_run(tproto.run_few_shot, name, split, **ONE_EPOCH)

@@ -799,3 +799,86 @@ def test_decode_attention_kernel_replays_from_a_cuda_graph(s, cuda):
         assert torch.equal(got, dops.decode_attention(q, k, v, key_pos=key_pos, q_pos=q_pos))
         want = _decode64(q, k, v, None, key_pos, q_pos).float()
         torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+def _fold_bundles(name, seeds, device):
+    return [scenarios.build(name, seed=s, device=device) for s in seeds]
+
+
+def _run_seeds_on(runner, bundles, seeds, cfg, device):
+    from repro_torch.core.protocol import run_seeds
+
+    return run_seeds(
+        runner, list(seeds), [b.split for b in bundles], [b.extractors for b in bundles],
+        [b.ssl_cfgs for b in bundles], cfg, device=device,
+    )
+
+
+def test_folded_one_shot_on_the_card(cuda):
+    """``run_seeds`` one-shot on hard/overlap-32 at seeds 0-3, 2 epochs, on
+    the card: every seed's ledger the CPU's, step ③ ONE k-means search over
+    the 4·2 gradient matrices (exactly 27 ``kmeans`` launches for the fold,
+    against 4 · 27 by loop), the stacked ④ session, no Eq. 10 launch."""
+    from repro_torch.core.protocol import run_one_shot
+
+    cfg = ProtocolConfig(client_epochs=2, server_epochs=2)
+    seeds = range(4)
+    want = _run_seeds_on(run_one_shot, _fold_bundles("hard/overlap-32", seeds, "cpu"), seeds, cfg, "cpu")
+    bundles = _fold_bundles("hard/overlap-32", seeds, cuda)
+    before, before_km = ops.LAUNCHES, kops.LAUNCHES
+    got = _run_seeds_on(run_one_shot, bundles, seeds, cfg, cuda)
+    assert (ops.LAUNCHES - before, kops.LAUNCHES - before_km) == (0, cfg.kmeans_iters + 2)
+    for g, w in zip(got, want):
+        assert [e.__dict__ for e in g.ledger.events] == [e.__dict__ for e in w.ledger.events]
+        d = g.diagnostics
+        assert (d["engine_path"], d["seed_fold"], d["kernel_fold"]) == ("vmap", 4, 8)
+        assert g.clients[0].extractor.layers[0].weight.is_cuda and 0.0 <= g.metric <= 1.0
+
+
+def test_folded_few_shot_on_the_card(cuda):
+    """``run_seeds`` few-shot on hard/overlap-32 at seeds 0-1, 2 epochs, on
+    the card: the CPU's ledgers; step ③' one Eq. 10 launch a party over the
+    stacked seeds (K = 2: exactly 2 ``sdpa_estimator`` launches, width 2
+    each), its estimates and p̂ within 1e-4 of the CPU's plain route on the
+    run's own inputs; 27 ``kmeans`` launches."""
+    cfg = ProtocolConfig(client_epochs=2, server_epochs=2)
+    seeds = range(2)
+    want = _run_seeds_on(run_few_shot, _fold_bundles("hard/overlap-32", seeds, "cpu"), seeds, cfg, "cpu")
+    bundles = _fold_bundles("hard/overlap-32", seeds, cuda)
+    before, before_km = ops.LAUNCHES, kops.LAUNCHES
+    got = _run_seeds_on(run_few_shot, bundles, seeds, cfg, cuda)
+    assert (ops.LAUNCHES - before, kops.LAUNCHES - before_km) == (2, cfg.kmeans_iters + 2)
+    for g, w in zip(got, want):
+        assert [e.__dict__ for e in g.ledger.events] == [e.__dict__ for e in w.ledger.events]
+        assert g.diagnostics["sdpa_fold"] == 2
+        chip_smoke.check_step3p(g, "folded few-shot")
+
+
+@pytest.mark.parametrize("num_parties", [2, 4])
+@pytest.mark.parametrize("entries", [1, 3])
+def test_estimate_missing_batched_against_the_plain_route(entries, num_parties, cuda):
+    """``dispatch.estimate_missing_batched`` on the card against the CPU's
+    plain route on the same inputs, within TOL of float64: one launch for all
+    K − 1 missing parties (fused: stride-0 at one entry, repeated over
+    several), each estimate (E, N_u, d_j)."""
+    from repro_torch.engine import dispatch
+
+    rng = np.random.default_rng(entries * 10 + num_parties)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    h_u = t(entries, 600, 16)
+    h_o = [t(entries, 32, 16) for _ in range(num_parties)]
+    for k in range(num_parties):
+        before = ops.LAUNCHES
+        got = dispatch.estimate_missing_batched(h_u.to(cuda), [h.to(cuda) for h in h_o], k)
+        assert ops.LAUNCHES - before == 1
+        want = dispatch.estimate_missing_batched(h_u, h_o, k)
+        others = [j for j in range(num_parties) if j != k]
+        assert len(got) == len(want) == len(others)
+        for g, w, j in zip(got, want, others):
+            assert g.shape == (entries, 600, 16) and g.is_cuda
+            torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=0)
+            oracle = _oracle64(h_u, h_o[k], h_o[j])
+            assert (g.cpu().double() - oracle).abs().max().item() <= TOL

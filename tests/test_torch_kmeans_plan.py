@@ -307,3 +307,23 @@ def test_merge_gives_the_lexicographic_minimum_with_signed_zeros_equal():
         v, a = min(r)  # Python's tuple order: lexicographic, and −0.0 == 0.0
         assert arg[i].item() == a and best[i].item() == v
     assert arg.tolist() == [3, 4, 9, 19, 22, 27]
+
+
+# The folds' step-③ launches: each Lloyd iteration covers S·C·K·R stacked
+# entries (the fault family's one-shot group 4·9·4·4 and few-shot group
+# 1·9·4·4; hard/overlap-32 and -64 at S = 4: 4·2·4).
+FOLD_SHAPES = [(576, 32, 16, 2), (144, 32, 16, 2), (32, 32, 16, 2), (32, 64, 16, 2)]
+
+
+@pytest.mark.parametrize("shape", FOLD_SHAPES, ids=str)
+@pytest.mark.parametrize("elem", [4, 2])
+def test_fold_shapes_take_the_rows_route_in_one_launch(shape, elem):
+    """At the folded widths the plan stays on the rows route, one launch and
+    no merge, and its blocks visit every (row, centre) pair of every stacked
+    entry exactly once."""
+    b, n, d, c = shape
+    plan = ops.launch_plan(b, n, c, d, elem, H100_SMS)
+    assert plan.route == "rows" and plan.splits == 1
+    assert plan.blocks * plan.rows_per_block >= b * n
+    assert plan.blocks == b * -(-n // plan.rows_per_block)
+    assert set(chip_smoke.KMEANS_SHAPES) >= {(576, 32, 16, 2), (32, 32, 16, 2)}

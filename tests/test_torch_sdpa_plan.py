@@ -255,3 +255,30 @@ def test_merge_weighs_a_range_with_no_valid_key_zero(shape):
     got = emulate(q, k, v, plan)
     assert torch.equal(emulate(q, k, v, plan, empty_ranges=2), got)
     assert (got.double() - want).abs().max().item() <= TOL
+
+
+# The folds' ③' launches: hard/overlap-32 and -64 at S = 4 (one launch of
+# width 4 a party), the fault family's few-shot group folded over C = 9
+# (width 27 = 9 entries × the K − 1 = 3 estimates).
+FOLD_SHAPES = [(4, 1184, 32, 16, 16), (4, 1168, 64, 16, 16), (27, 592, 32, 16, 16)]
+
+
+# (ranges, blocks) the wrapper's plan makes at each: one 32-key tile cannot
+# split; at 64 keys and 76 row blocks two ranges fill more of the card; at
+# width 27 the query rows alone give every SM a block
+FOLD_PLANS = {FOLD_SHAPES[0]: (1, 76), FOLD_SHAPES[1]: (2, 152), FOLD_SHAPES[2]: (1, 270)}
+
+
+@pytest.mark.parametrize("shape", FOLD_SHAPES, ids=str)
+def test_fold_shapes_are_planned_and_covered(shape):
+    """At the folded widths every key is covered once by a whole number of
+    tiles, and the plan is the cost model's (FOLD_PLANS)."""
+    b, nu, no, d, db = shape
+    plan = ops.launch_plan(b, nu, no, d, db, H100_SMS)
+    ranges = plan.ranges(no)
+    assert ranges[0][0] == 0 and ranges[-1][1] == no
+    assert all(a[1] == b_[0] and a[0] < a[1] for a, b_ in zip(ranges, ranges[1:]))
+    row_blocks = b * math.ceil(nu / ops.BM) * math.ceil(db / ops.COLS)
+    assert plan.blocks == row_blocks * plan.splits
+    assert (plan.splits, plan.blocks) == FOLD_PLANS[shape]
+    assert [s for s, _ in chip_smoke.FOLD_SDPA_SHAPES] == [FOLD_SHAPES[0], FOLD_SHAPES[2]]
