@@ -11,9 +11,9 @@ iterative VFL and FedCVT, over ``--seeds`` seeds, and emits one row per
 (scenario, method). Execution is grouped: the selection is partitioned by
 ``scenarios.group_scenarios`` and each group's C scenarios × S seeds go
 through ``core.protocol.run_scenarios_seeds`` as one folded sweep a method.
-The protocol methods fold into one stacked S·C·K program; the iterative
-baselines loop per seed for now (their stacked fold is still to come) and
-say so in their rows (``seed_fold`` 1, ``engine_path`` "python").
+The protocol methods fold into one stacked S·C·K program, the iterative
+baselines into one stacked S·C session (from four entries on,
+``iterative.stack_pays``).
 
 Each row records the metric, ledger bytes and comm times, ``wall_s`` (the
 method's whole-group sweep wall, amortized over its C×S entries),
@@ -29,12 +29,14 @@ mean margins over iterative clear ``min_mean_margin`` /
 ``fewshot_min_mean_margin`` and no seed's margin falls below
 ``min_worst_margin`` / ``fewshot_min_worst_margin``; one-shot's bytes do not
 exceed the recorded ``one_shot_bytes``; the fault family degrades within
-``max_oneshot_drop`` (:func:`_check_fault_rows`). It also requires the
-protocol methods to have folded: every stackable one-shot and few-shot row
-on the stacked engine path, ``seed_fold`` equal to the sweep's seeds,
-``scenario_fold`` to its group's size, ``kernel_fold`` to
-S·C·K and few-shot's ``sdpa_fold`` to S·C. The run is on the card unless
-``--device cpu`` is given; ``--data-device`` draws the data elsewhere (the
+``max_oneshot_drop`` (:func:`_check_fault_rows`). It also requires every
+method to have folded (:func:`_check_folds`): ``seed_fold`` equal to the
+sweep's seeds and ``scenario_fold`` to its group's size on every row, the
+stacked engine path on every row the stack policy stacks (``vmap_eligible``:
+``local_ssl.stack_pays`` for the protocol methods' SSL sessions,
+``iterative.stack_pays`` for the baselines' sessions), and on the protocol
+rows ``kernel_fold`` equal to S·C·K and few-shot's ``sdpa_fold`` to S·C.
+The run is on the card unless ``--device cpu`` is given; ``--data-device`` draws the data elsewhere (the
 port's generators draw other rows on the card than on the CPU for one
 seed), so the card can train on the CPU's rows and the CPU on the card's.
 """
@@ -59,6 +61,7 @@ from repro_torch.core import runners as runner_registry  # noqa: E402
 from repro_torch.core.baselines import IterativeConfig  # noqa: E402
 from repro_torch.core.protocol import ProtocolConfig, run_scenarios_seeds  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.engine import iterative  # noqa: E402
 from repro_torch.engine.local_ssl import parties_are_homogeneous, stack_pays  # noqa: E402
 from repro_torch.engine.sessions import (  # noqa: E402
     session_cache_stats,
@@ -128,10 +131,15 @@ def run_scenario_group(bundles_per_scenario, seeds, methods=METHODS, device=None
     group_size = len(specs)
     runner_cfgs = _runner_cfgs(specs[0], methods)
     b0 = bundles_per_scenario[0][0]
-    # the fold stacks its SSL sessions where "auto" would (local_ssl.stack_pays)
-    vmap_eligible = parties_are_homogeneous(
-        b0.extractors, b0.ssl_cfgs, [tuple(x.shape) for x in b0.split.aligned]
-    ) and stack_pays(b0.extractors[0], len(b0.extractors), group_size * len(seeds))
+    # where "auto" stacks: the protocol methods' SSL sessions
+    # (local_ssl.stack_pays), the baselines' sessions (iterative.stack_pays)
+    entries = group_size * len(seeds)
+    vmap_eligible = {
+        "protocol": parties_are_homogeneous(
+            b0.extractors, b0.ssl_cfgs, [tuple(x.shape) for x in b0.split.aligned]
+        ) and stack_pays(b0.extractors[0], len(b0.extractors), entries),
+        "iterative": iterative.stack_pays(entries),
+    }
     # faults are per-entry data, outside the fold signature: a group with
     # any FaultSpec threads the C×S grid through the same folded sweep
     fault_kw = {}
@@ -167,7 +175,7 @@ def run_scenario_group(bundles_per_scenario, seeds, methods=METHODS, device=None
                     wall_s=wall / (len(seeds) * group_size),
                     cache_misses=misses,
                     group_size=group_size,
-                    vmap_eligible=vmap_eligible,
+                    vmap_eligible=vmap_eligible[runner_registry.get(method).kind],
                     overlap=spec.overlap,
                     num_parties=spec.num_parties,
                     modality=spec.modality,
@@ -305,14 +313,14 @@ def _check_fault_rows(per_seed, baseline, expect_faults: bool, problems: list) -
 
 
 def _check_folds(per_seed, problems: list) -> None:
-    """The protocol methods must have folded: on the stacked engine path
-    where the parties stack, over every seed of the sweep and the row's
-    whole group, with step ③ one k-means search over S·C·K and ③' over S·C.
-    The iterative baselines are exempt (their fold is still to come)."""
+    """Every method must have folded: over every seed of the sweep and the
+    row's whole group, on the stacked engine path where the stack policy
+    stacks (``vmap_eligible``), and for the protocol methods with step ③
+    one k-means search over S·C·K and ③' over S·C. The iterative baselines
+    launch no kernel, so their rows carry no kernel folds (the reference's
+    rule for its ``iterative`` and ``fedcvt`` rows)."""
     num_sweep_seeds = len({r["seed"] for r in per_seed})
     for r in per_seed:
-        if r["method"] not in PROTOCOL_METHODS:
-            continue
         what = f"{r['scenario']} seed {r['seed']}: {r['method']}"
         if r.get("seed_fold") != num_sweep_seeds:
             problems.append(
@@ -326,9 +334,11 @@ def _check_folds(per_seed, problems: list) -> None:
                 f"per-scenario loop"
             )
         if not r.get("vmap_eligible", False):
-            continue  # heterogeneous parties train per entry inside the fold
+            continue  # the stack policy keeps these entries on the loop
         if r.get("engine_path") != "vmap":
             problems.append(f"{what} trained on engine_path={r.get('engine_path')!r}, not the stack")
+        if r["method"] not in PROTOCOL_METHODS:
+            continue
         flat = r.get("seed_fold", 1) * r.get("scenario_fold", 1)
         want_km = flat * r.get("num_parties", 1)
         if r.get("kernel_fold") != want_km:
@@ -459,7 +469,7 @@ def main(argv=None) -> int:
             return 1
         print(
             "gate: one-shot AND few-shot dominate iterative (bytes >=100x, mean margin + worst "
-            "seed), the protocol methods folded, fault/* degradation within bounds, and bytes "
+            "seed), every method folded, fault/* degradation within bounds, and bytes "
             "match the recorded baseline"
         )
     return 0

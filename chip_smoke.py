@@ -76,7 +76,15 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    FAULT_LEDGERS, the reference gate's outcomes equal to the loop's, every
    metric within FOLD_METRIC_TOL of the loop's; the first FOLD_PARAM_STEPS
    stacked ④ steps against the one-party loop on the card (parameters within
-   LOGIT_RTOL of the largest); ``benchmarks/torch_frontier.py`` on
+   LOGIT_RTOL of the largest); SplitNN, FedBCD and FedCVT each as ONE
+   ``run_scenarios_seeds`` group over the nine members × seeds 0-3 (36
+   entries of one stacked session, each stalling at its own step) at 200
+   iterations, each ledger equal to FAULT_LEDGERS, the dropouts with 3
+   survivors and the straggler and dp members unmodeled, the seed-0 entries
+   of FAULT_ITERATIVE within FOLD_METRIC_TOL of [faults]' loop; the first
+   ITER_CONTRAST_ITERATIONS iterations of each stacked and by the per-entry
+   loop on the card (parameters within LOGIT_RTOL of the largest);
+   ``benchmarks/torch_frontier.py`` on
    ``hard/overlap-{32,64}`` at seeds 0-3 (one-shot, few-shot, iterative,
    FedCVT at the registered sizes and budgets) and its gate against
    ``benchmarks/frontier_baseline.json`` (every violation fails the run
@@ -384,6 +392,9 @@ FAULT_SDPA_SHAPES = [((1, 32, 32, 16, 16), torch.float32), ((1, 600, 32, 16, 16)
 # gate (benchmarks/torch_frontier.py, benchmarks/frontier_baseline.json).
 FOLD_METRIC_TOL = 0.02
 FOLD_PARAM_STEPS = 5
+# The iterative baselines' folds: the stacked session against the per-entry
+# loop (engine_mode "vmap" / "python") over their first iterations.
+ITER_CONTRAST_ITERATIONS = 10
 FOLD_FRONTIER = ("hard/overlap-32", "hard/overlap-64")
 FOLD_FRONTIER_SEEDS = range(4)
 # The one gate miss the phase prints and does not fail on: few-shot's
@@ -1854,7 +1865,8 @@ def phase_folds(line: str, flt: dict) -> dict:
     """The folds on the card: the fault family as one folded group a
     protocol (one-shot at FAULT_SEEDS, few-shot at seed 0) on [faults]' own
     splits, held to its ledgers, gate outcomes and metrics; the stacked ④
-    steps against the one-party loop; and ``benchmarks/torch_frontier.py``'s
+    steps against the one-party loop; the baselines' folds
+    (:func:`phase_iterative_folds`); and ``benchmarks/torch_frontier.py``'s
     group runner and gate on FOLD_FRONTIER at FOLD_FRONTIER_SEEDS. Returns
     the launches the phase should have made."""
     from benchmarks import torch_frontier
@@ -1942,6 +1954,10 @@ def phase_folds(line: str, flt: dict) -> dict:
         f"(tolerance {LOGIT_RTOL})"
     )
 
+    t_it = time.perf_counter()
+    iter_rows = phase_iterative_folds(flt)
+    iterative_s = time.perf_counter() - t_it
+
     # the frontier: the reference's methods, sizes, budgets and gate
     seeds = list(FOLD_FRONTIER_SEEDS)
     rows = []
@@ -1973,9 +1989,100 @@ def phase_folds(line: str, flt: dict) -> dict:
         f"{FOLD_GATE_REPORTED[1]} >= {FOLD_GATE_REPORTED[2]:+.2f}); every other rule holds "
         f"| {frontier_s:.1f} s"
     )
-    print(json.dumps({"folds": {"frontier": aggs, "gate": problems, "card": line}}))
-    out.update(one_shot_wall=wall, few_shot_wall=wall_few, frontier_s=frontier_s)
+    print(json.dumps({"folds": {"frontier": aggs, "gate": problems, "iterative": iter_rows,
+                                "card": line}}))
+    out.update(one_shot_wall=wall, few_shot_wall=wall_few, frontier_s=frontier_s,
+               iterative_s=iterative_s)
     return out
+
+
+def _params_of(results) -> list:
+    """Every trained leaf of a C×S grid of baseline results."""
+    return [
+        p.detach() for row in results for r in row
+        for m in (*(c.extractor for c in r.clients), r.server.classifier) for p in m.parameters()
+    ]
+
+
+def phase_iterative_folds(flt: dict) -> list:
+    """SplitNN, FedBCD and FedCVT on the fault family as one folded group
+    each (FAULT_NAMES × FAULT_SEEDS, [faults]' own splits) at the members'
+    200 iterations, held to FAULT_LEDGERS, the fault model's survivors and
+    [faults]' loop metrics; then each method's first ITER_CONTRAST_ITERATIONS
+    iterations stacked and by the per-entry loop. No kernel launches.
+    Returns the rows."""
+    spec = scenarios.get(FAULT_BASELINE)
+    it = baselines.IterativeConfig(iterations=spec.budget("iterations", 300))
+    loop = {(r["scenario"], r["method"]): r for r in flt["iterative"]}
+    rows = []
+    before = (ops.LAUNCHES, kops.LAUNCHES)
+    for method, runner in BASELINE_RUNNERS:
+        res, wall, _ = _fold_group(runner, list(FAULT_SEEDS), flt, it)
+        deltas = []
+        for name, row in zip(FAULT_NAMES, res):
+            fault = scenarios.get(name).fault
+            for seed, r in zip(FAULT_SEEDS, row):
+                what = f"folds {name} {method} seed {seed}"
+                d = r.diagnostics
+                got = (r.ledger.total_bytes(), r.ledger.comm_times())
+                check(got == FAULT_LEDGERS[name][method], f"{what}: (bytes, comm times) {got}")
+                check(bool(torch.isfinite(d["losses"]).all()), f"{what}: a loss is not finite")
+                check(math.isfinite(r.metric), f"{what}: {r.metric_name} {r.metric}")
+                folds = (d["engine_path"], d["seed_fold"], d["scenario_fold"])
+                check(folds == ("vmap", len(FAULT_SEEDS), len(FAULT_NAMES)), f"{what}: folds {folds}")
+                if fault is None:
+                    check("fault_kind" not in d, f"{what}: fault diagnostics on the fault-free twin")
+                elif fault.kind == "dropout":
+                    check(d["parties_survived"] == 3 and d["fault_modeled"] is True,
+                          f"{what}: survivors {d['parties_survived']}, modeled {d['fault_modeled']}")
+                else:  # the synchronous round loop has no model of it
+                    check(d["fault_modeled"] is False and d["parties_survived"] == 4,
+                          f"{what}: fault_modeled {d['fault_modeled']}")
+                if seed == SEED and (name, method) in loop:
+                    deltas.append(abs(r.metric - loop[name, method]["metric"]))
+        check(len(deltas) == len(FAULT_ITERATIVE), f"folds {method}: {len(deltas)} loop entries")
+        check(max(deltas) <= FOLD_METRIC_TOL, f"folds {method}: vs the loop max|Δ| {max(deltas)}")
+        d = res[0][0].diagnostics
+        steps = d["losses"].shape[0]
+        loop_wall = sum(loop[n, method]["wall_s"] for n in FAULT_ITERATIVE)
+        entries = len(FAULT_NAMES) * len(FAULT_SEEDS)
+        row = {"method": method, "entries": entries, "steps": steps, "fold_wall_s": wall,
+               "stacked_step_ms": d["step_ms"]["session"] / steps, "loop_entries": len(deltas),
+               "loop_wall_s": loop_wall, "max_abs_delta": max(deltas)}
+        rows.append(row)
+        print(
+            f"[folds] fault family {method}: ONE run_scenarios_seeds group of {len(FAULT_NAMES)} "
+            f"scenarios × {len(FAULT_SEEDS)} seeds ({entries} entries of one stacked session, "
+            f"{steps} {'rounds of Q = 5' if method == 'fedbcd' else 'iterations'}) | engine_path "
+            f"{d['engine_path']}, seed_fold {d['seed_fold']}, scenario_fold {d['scenario_fold']} | "
+            f"ledgers = FAULT_LEDGERS (retry rounds included) | {FAULT_ITERATIVE[0]} and the "
+            f"dropouts at seed {SEED} vs [faults]' loop max|Δ| {max(deltas):.4f} (tolerance "
+            f"{FOLD_METRIC_TOL}) | fold wall {wall:.2f} s for {entries} entries ({wall / entries:.3f} "
+            f"s an entry) against the loop's {loop_wall:.2f} s for {len(deltas)} "
+            f"({loop_wall / len(deltas):.3f} s an entry) | {row['stacked_step_ms']:.3f} ms a "
+            f"stacked {'round' if method == 'fedbcd' else 'step'}"
+        )
+    for method, runner in BASELINE_RUNNERS:
+        short = dataclasses.replace(it, iterations=ITER_CONTRAST_ITERATIONS)
+        runs = {}
+        for mode in ("vmap", "python"):
+            res, _, _ = _fold_group(runner, list(FAULT_SEEDS), {"splits": {}},
+                                    dataclasses.replace(short, engine_mode=mode))
+            check(res[0][0].diagnostics["engine_path"] == mode, f"folds {method}: {mode} path")
+            runs[mode] = _params_of(res)
+        err = max((a - b).abs().max().item() for a, b in zip(runs["vmap"], runs["python"]))
+        scale = max(p.abs().max().item() for p in runs["python"])
+        check(err / scale <= LOGIT_RTOL, f"folds {method}: stacked vs loop {err / scale} > {LOGIT_RTOL}")
+        rows.append({"method": method, "contrast_iterations": ITER_CONTRAST_ITERATIONS,
+                     "max_abs_over_max_param": err / scale})
+        print(
+            f"[folds] {method} stacked vs the per-entry loop on the card after "
+            f"{ITER_CONTRAST_ITERATIONS} iterations, all {len(FAULT_NAMES) * len(FAULT_SEEDS)} "
+            f"entries: max|Δ| / max|param| {err / scale:.3e} (tolerance {LOGIT_RTOL})"
+        )
+    launched = (ops.LAUNCHES - before[0], kops.LAUNCHES - before[1])
+    check(launched == (0, 0), f"folds: the iterative baselines launched kernels {launched}")
+    return rows
 
 
 def make_art(spec, shapes, gen):
@@ -2392,7 +2499,8 @@ def main() -> int:
         f"[time] {time.time() - t_start:.1f} s from the build on; few-shot phases "
         f"{few_shot_s:.1f} s; baselines A {baselines_a_s:.1f} s, baselines B {baselines_b_s:.1f} "
         f"s, few-shot + finetune A {finetune_s:.1f} s, faults {faults_s:.1f} s, folds "
-        f"{folds_s:.1f} s, catalog "
+        f"{folds_s:.1f} s (the iterative folds {fld['iterative_s']:.1f} s, the frontier "
+        f"{fld['frontier_s']:.1f} s), catalog "
         f"{catalog_s:.1f} s; the zoo's "
         f"share: kernel phases "
         f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s"

@@ -1,4 +1,4 @@
-"""Baseline VFL methods of the paper's evaluation (§5.1), at one seed.
+"""Baseline VFL methods of the paper's evaluation (§5.1) and their seed fold.
 
 Counterpart of ``repro.core.baselines``:
 
@@ -12,16 +12,20 @@ Counterpart of ``repro.core.baselines``:
   unaligned batch joins with Eq. 10 estimates of the other parties' reps
   and confidence-gated pseudo-labels.
 
-Each runs on ``device`` (``cuda`` unless the caller says ``"cpu"``) through
-``engine.iterative``'s Python loop. Randomness comes from one CPU generator
-seeded with ``seed``, in this order: the clients' init
-(``protocol._build_clients``), the server classifier's, then the schedule
-seed ``seed0``. Every transfer goes through the :class:`CommLedger` with the
-reference's tags and rounds. ``run_vanilla_seeds`` / ``run_fedcvt_seeds`` /
-``run_fedbcd_seeds`` are the runner registry's multi-seed entries: for now a
-per-seed loop of the runner, which logs one prototype ledger (checked byte
-for byte across seeds) and records ``seed_fold`` 1 and ``engine_path``
-``"python"``; the reference's stacked iterative fold is still to come.
+Each runs on ``device`` (``cuda`` unless the caller says ``"cpu"``). The
+single-seed runners are the E = 1 case of ``run_vanilla_seeds`` /
+``run_fedcvt_seeds`` / ``run_fedbcd_seeds``, the runner registry's
+multi-seed entries: every entry (seeds and scenarios alike) draws from a
+CPU generator seeded with its seed, in this order: its clients' init
+(``protocol._build_clients``), its server classifier's, then its schedule
+seed ``seed0``; then all entries' sessions run as one
+``engine.batched.*_sessions_seeds`` call, one stacked session where
+``iterative.stack_pays`` (four entries or more) or ``cfg.engine_mode`` asks
+for it, else the per-entry loop. Every transfer
+goes through the :class:`CommLedger` with the reference's tags and rounds:
+a fault-free fold logs one prototype ledger (the orchestration copies it
+per result), a faulted one each entry's own. Results record
+``engine_path``, ``seed_fold`` and ``device_fold``.
 
 A ``fault`` follows the reference's model of the synchronous round loop
 (:func:`log_fault_plan`): a dropout stalls the loop at its stage's share
@@ -34,7 +38,7 @@ they run fault-free and say so (``fault_modeled: False``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -50,7 +54,7 @@ from repro_torch.core.ssl import SSLConfig
 from repro_torch.data.loader import epoch_batches
 from repro_torch.data.vertical import VerticalSplit
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.engine import iterative
+from repro_torch.engine import batched, iterative
 from repro_torch.engine.local_ssl import seed_from
 from repro_torch.scenarios.faults import FaultSpec
 
@@ -64,6 +68,7 @@ class IterativeConfig:
     momentum: float = 0.9
     fedbcd_q: int = 5  # Q (paper: 5)
     fedcvt_threshold: float = 0.95
+    engine_mode: str = "auto"  # "auto" | "vmap" | "python": the sessions' path
 
     def iter_hparams(self) -> iterative.IterHParams:
         return iterative.IterHParams(
@@ -158,7 +163,6 @@ class _Session:
     clients: List[VFLClient]
     server: VFLServer
     seed0: int
-    clock: "protocol._StepClock"
     bs: int
 
     @property
@@ -174,13 +178,11 @@ def _setup(
     cfg: IterativeConfig,
     clients: Optional[List[VFLClient]],
     server: Optional[VFLServer],
-    device: DeviceLike,
+    dev: torch.device,
 ) -> _Session:
-    """The split on its device, the clients (built unless given), the
-    server with a classifier over Σ rep_dim (fresh unless given fitted) and
-    ``seed0``, drawn in that order from the CPU generator of ``seed``."""
-    dev = resolve_device(device)
-    clock = protocol._StepClock(dev)
+    """One entry: the split on ``dev``, the clients (built unless given),
+    the server with a classifier over Σ rep_dim (fresh unless given fitted)
+    and ``seed0``, drawn in that order from the CPU generator of ``seed``."""
     split = protocol._to_device(split, dev)
     host = torch.Generator().manual_seed(seed)
     if clients is None:
@@ -189,37 +191,154 @@ def _setup(
         server = VFLServer(num_classes=split.num_classes)
         server.classifier = server._fresh_classifier(sum(e.rep_dim for e in extractors), host, dev)
     seed0 = seed_from(host)
-    clock.lap("setup")
     bs = min(cfg.batch_size, split.labels.shape[0])
-    return _Session(split, clients, server, seed0, clock, bs)
+    return _Session(split, clients, server, seed0, bs)
 
 
-def _finish(
-    s: _Session,
-    extractors: Sequence[ExtractorSpec],
-    ledger: CommLedger,
-    losses: torch.Tensor,
-    diags: dict,
-    fault: Optional[FaultSpec] = None,
-) -> VFLResult:
-    """Score the trained state on the held-out split and pack the result;
-    ``diagnostics`` gets the session's losses, the last one and each
-    stage's time (``step_ms``: setup, session, eval). Under a dropout the
-    dropped party's test reps are zeros; under any fault the metric is
-    also ``degraded_metric``."""
-    s.clock.lap("session")
-    dropout = fault if fault is not None and fault.kind == "dropout" else None
-    name, metric = protocol._evaluate(s.server, s.clients, s.split, dropout)
-    s.clock.lap("eval")
-    if fault is not None:
-        diags["degraded_metric"] = float(metric)
-    losses = losses.cpu()
-    diags.update(
-        losses=losses,
-        final_loss=float(losses[-1]) if losses.numel() else None,
-        step_ms=s.clock.ms,
+@dataclass
+class _SeedFold:
+    """The entries of one fold, their specs and faults, the step clock, and
+    what the fault plan gives: each entry's ledger (one shared prototype
+    when no entry is faulted), commit horizon and fault diagnostics."""
+
+    entries: List[_Session]
+    specs: Sequence[Sequence[ExtractorSpec]]
+    faults: Optional[Sequence[Optional[FaultSpec]]]
+    clock: "protocol._StepClock"
+    ledgers: List[CommLedger] = field(default_factory=list)
+    active: Optional[List[Optional[int]]] = None
+    diags: List[dict] = field(default_factory=list)
+
+
+def _seed_fold(
+    seeds, splits, extractors, ssl_cfgs, cfg, device, faults=None, clients_per_seed=None, servers=None
+) -> _SeedFold:
+    """Every entry's :func:`_setup`, each from its own seed's generator."""
+    num = len(seeds)
+    if not (len(splits) == len(extractors) == len(ssl_cfgs) == num):
+        raise ValueError("a fold needs one split, extractor list and SSL-config list per seed")
+    for given, what in ((faults, "faults"), (clients_per_seed, "clients_per_seed"), (servers, "servers")):
+        if given is not None and len(given) != num:
+            raise ValueError(f"{what} needs one entry per stacked entry")
+    if faults is not None and not any(f is not None for f in faults):
+        faults = None
+    dev = resolve_device(device)
+    clock = protocol._StepClock(dev)
+    entries = [
+        _setup(
+            seed, splits[e], extractors[e], ssl_cfgs[e], cfg,
+            None if clients_per_seed is None else clients_per_seed[e],
+            None if servers is None else servers[e], dev,
+        )
+        for e, seed in enumerate(seeds)
+    ]
+    clock.lap("setup")
+    return _SeedFold(entries, [list(e) for e in extractors], faults, clock)
+
+
+def _plan(fold: _SeedFold, ledger: Optional[CommLedger], n_steps: int, payload_factor: int = 1) -> None:
+    """The fold's ledgers and commit horizons (:func:`log_fault_plan`, the
+    reference's ``_iterative_fault_plan``). Without a fault the fold logs one
+    prototype ledger (``ledger`` if given), after checking every entry moves
+    the same bytes; with one, each entry logs its own plan on its own
+    ledger (``ledger`` only for a single entry)."""
+    num = len(fold.entries)
+    plans = {(tuple(e.rep_dim for e in specs), s.bs) for specs, s in zip(fold.specs, fold.entries)}
+    if fold.faults is None:
+        if len(plans) != 1:
+            raise ValueError(f"a fold broke ledger byte-identity: per-entry (rep dims, bs) {sorted(plans)}")
+        ledger = ledger if ledger is not None else CommLedger()
+        rep_dims, bs = plans.pop()
+        log_iterative_rounds(ledger, rep_dims, n_steps, bs, payload_factor)
+        fold.ledgers, fold.diags = [ledger] * num, [{} for _ in range(num)]
+        return
+    if ledger is not None and num != 1:
+        raise ValueError("a ledger can be given to a faulted single-entry run only")
+    active = []
+    for specs, s, fault in zip(fold.specs, fold.entries, fold.faults):
+        own = ledger if ledger is not None else CommLedger()
+        horizon, diags = log_fault_plan(own, fault, [e.rep_dim for e in specs], n_steps, s.bs, payload_factor)
+        fold.ledgers.append(own)
+        fold.diags.append(diags)
+        active.append(horizon)
+    fold.active = active if any(a is not None for a in active) else None
+
+
+def _finish(fold: _SeedFold, losses: torch.Tensor, path: str, extra: dict) -> List[VFLResult]:
+    """Score every entry's trained state on its held-out split and pack the
+    results. ``diagnostics`` gets the entry's losses, the last one, the
+    fold's stage times (``step_ms``: setup, session, eval), the path
+    (``engine_path``), ``seed_fold`` (the entries), ``device_fold`` 1 and
+    ``extra``. Under a dropout the dropped party's test reps are zeros;
+    under any fault the metric is also ``degraded_metric``."""
+    fold.clock.lap("session")
+    faults = fold.faults if fold.faults is not None else [None] * len(fold.entries)
+    scores = []
+    for s, fault in zip(fold.entries, faults):
+        dropout = fault if fault is not None and fault.kind == "dropout" else None
+        scores.append(protocol._evaluate(s.server, s.clients, s.split, dropout))
+    fold.clock.lap("eval")
+    host = losses.cpu()
+    results = []
+    for e, (s, fault, (name, metric)) in enumerate(zip(fold.entries, faults, scores)):
+        diags = dict(fold.diags[e], **extra)
+        if fault is not None:
+            diags["degraded_metric"] = float(metric)
+        diags.update(
+            losses=host[e],
+            final_loss=float(host[e, -1]) if host.shape[1] else None,
+            step_ms=dict(fold.clock.ms),
+            engine_path=path,
+            seed_fold=len(fold.entries),
+            device_fold=1,
+        )
+        results.append(
+            VFLResult(name, metric, fold.ledgers[e], s.clients, s.server, tuple(fold.specs[e]), None, diags)
+        )
+    return results
+
+
+def _data(fold: _SeedFold) -> tuple:
+    """Every entry's modules, aligned rows and labels, the fold's arguments."""
+    es = fold.entries
+    return (
+        [s.extractors for s in es],
+        [s.server.classifier for s in es],
+        [s.split.aligned for s in es],
+        [s.split.labels for s in es],
     )
-    return VFLResult(name, metric, ledger, s.clients, s.server, tuple(extractors), None, diags)
+
+
+def run_vanilla_seeds(
+    seeds: Sequence[int],
+    splits: Sequence[VerticalSplit],
+    extractors: Sequence[Sequence[ExtractorSpec]],
+    ssl_cfgs: Sequence[Sequence[SSLConfig]],
+    cfg: Optional[IterativeConfig] = None,
+    clients_per_seed: Optional[Sequence[Optional[List[VFLClient]]]] = None,
+    servers: Optional[Sequence[Optional[VFLServer]]] = None,
+    ledger: Optional[CommLedger] = None,
+    device: DeviceLike = None,
+    faults: Optional[Sequence[Optional[FaultSpec]]] = None,
+) -> List[VFLResult]:
+    """Vanilla SplitNN VFL over E entries as one fold: each entry's
+    ``cfg.iterations`` joint steps over shuffled epochs of its aligned rows,
+    under its fault if given (:func:`log_fault_plan`), all entries' sessions
+    one ``batched.splitnn_sessions_seeds`` call. ``clients_per_seed`` /
+    ``servers`` / ``ledger`` take pre-trained state and a ledger to continue
+    (the chained finetune of ``protocol.run_few_shot_finetune``)."""
+    cfg = cfg if cfg is not None else IterativeConfig()
+    fold = _seed_fold(seeds, splits, extractors, ssl_cfgs, cfg, device, faults, clients_per_seed, servers)
+    schedules = [
+        iterative.build_iteration_schedule(s.seed0, s.split.labels.shape[0], cfg.batch_size, cfg.iterations)
+        for s in fold.entries
+    ]
+    _plan(fold, ledger, cfg.iterations)
+    exts, clfs, xs, ys = _data(fold)
+    losses, path = batched.splitnn_sessions_seeds(
+        exts, clfs, cfg.iter_hparams(), xs, ys, schedules, cfg.engine_mode, fold.active
+    )
+    return _finish(fold, losses, path, {"iterations": cfg.iterations})
 
 
 def run_vanilla(
@@ -235,25 +354,38 @@ def run_vanilla(
     fault: Optional[FaultSpec] = None,
 ) -> VFLResult:
     """Vanilla SplitNN VFL: ``cfg.iterations`` joint steps over shuffled
-    epochs of the aligned rows, under ``fault`` if given
-    (:func:`log_fault_plan`). ``clients`` / ``server`` / ``ledger`` take
-    pre-trained state and a ledger to continue (the finetune of
-    ``protocol.run_few_shot_finetune``)."""
+    epochs of the aligned rows, under ``fault`` if given. The E = 1 case of
+    :func:`run_vanilla_seeds`."""
+    return run_vanilla_seeds(
+        [seed], [split], [extractors], [ssl_cfgs], cfg, [clients], [server], ledger, device,
+        None if fault is None else [fault],
+    )[0]
+
+
+def run_fedbcd_seeds(
+    seeds: Sequence[int],
+    splits: Sequence[VerticalSplit],
+    extractors: Sequence[Sequence[ExtractorSpec]],
+    ssl_cfgs: Sequence[Sequence[SSLConfig]],
+    cfg: Optional[IterativeConfig] = None,
+    device: DeviceLike = None,
+    faults: Optional[Sequence[Optional[FaultSpec]]] = None,
+) -> List[VFLResult]:
+    """FedBCD-p over E entries as one fold: ``cfg.iterations // cfg.fedbcd_q``
+    rounds, each one rep exchange then Q local updates on both sides. A
+    dropout's stall counts rounds, not local updates."""
     cfg = cfg if cfg is not None else IterativeConfig()
-    ledger = ledger if ledger is not None else CommLedger()
-    s = _setup(seed, split, extractors, ssl_cfgs, cfg, clients, server, device)
-    sched = iterative.build_iteration_schedule(
-        s.seed0, s.split.labels.shape[0], cfg.batch_size, cfg.iterations
+    rounds = cfg.iterations // cfg.fedbcd_q
+    fold = _seed_fold(seeds, splits, extractors, ssl_cfgs, cfg, device, faults)
+    schedules = [
+        fedbcd_schedule(s.seed0, s.split.labels.shape[0], cfg.batch_size, rounds) for s in fold.entries
+    ]
+    _plan(fold, None, rounds)
+    exts, clfs, xs, ys = _data(fold)
+    losses, path = batched.fedbcd_sessions_seeds(
+        exts, clfs, cfg.iter_hparams(), cfg.fedbcd_q, xs, ys, schedules, cfg.engine_mode, fold.active
     )
-    active, diags = log_fault_plan(
-        ledger, fault, [e.rep_dim for e in extractors], cfg.iterations, s.bs
-    )
-    step = iterative.make_splitnn_step_fn(s.extractors, s.server.classifier, cfg.iter_hparams())
-    losses = iterative.run_iterative_session(
-        step, s.split.aligned, s.split.labels, sched, active_steps=active
-    )
-    diags["iterations"] = cfg.iterations
-    return _finish(s, extractors, ledger, losses, diags, fault)
+    return _finish(fold, losses, path, {"rounds": rounds, "Q": cfg.fedbcd_q})
 
 
 def run_fedbcd(
@@ -265,23 +397,44 @@ def run_fedbcd(
     device: DeviceLike = None,
     fault: Optional[FaultSpec] = None,
 ) -> VFLResult:
-    """FedBCD-p: ``cfg.iterations // cfg.fedbcd_q`` rounds, each one rep
-    exchange then Q local updates on both sides. A dropout's stall counts
-    rounds, not local updates."""
+    """FedBCD-p at one seed: the E = 1 case of :func:`run_fedbcd_seeds`."""
+    return run_fedbcd_seeds(
+        [seed], [split], [extractors], [ssl_cfgs], cfg, device, None if fault is None else [fault]
+    )[0]
+
+
+def run_fedcvt_seeds(
+    seeds: Sequence[int],
+    splits: Sequence[VerticalSplit],
+    extractors: Sequence[Sequence[ExtractorSpec]],
+    ssl_cfgs: Sequence[Sequence[SSLConfig]],
+    cfg: Optional[IterativeConfig] = None,
+    device: DeviceLike = None,
+    faults: Optional[Sequence[Optional[FaultSpec]]] = None,
+) -> List[VFLResult]:
+    """FedCVT-style semi-supervised baseline over E entries as one fold:
+    vanilla iterations plus, per iteration, each party's unaligned batch
+    with Eq. 10-estimated missing reps and pseudo-labels above
+    ``cfg.fedcvt_threshold``. Overlap and unaligned reps go up and both
+    gradients come down: 2× vanilla's bytes, retry rounds included."""
     cfg = cfg if cfg is not None else IterativeConfig()
-    ledger = CommLedger()
-    rounds = cfg.iterations // cfg.fedbcd_q
-    s = _setup(seed, split, extractors, ssl_cfgs, cfg, None, None, device)
-    sched = fedbcd_schedule(s.seed0, s.split.labels.shape[0], cfg.batch_size, rounds)
-    active, diags = log_fault_plan(ledger, fault, [e.rep_dim for e in extractors], rounds, s.bs)
-    step = iterative.make_fedbcd_step_fn(
-        s.extractors, s.server.classifier, cfg.iter_hparams(), cfg.fedbcd_q
+    fold = _seed_fold(seeds, splits, extractors, ssl_cfgs, cfg, device, faults)
+    schedules = [
+        iterative.build_iteration_schedule(s.seed0, s.split.labels.shape[0], cfg.batch_size, cfg.iterations)
+        for s in fold.entries
+    ]
+    # seeded literally 0, as the reference seeds them: only pool sizes and bs enter
+    u_schedules = [
+        iterative.build_unaligned_schedule(0, [x.shape[0] for x in s.split.unaligned], s.bs, cfg.iterations)
+        for s in fold.entries
+    ]
+    _plan(fold, None, cfg.iterations, payload_factor=2)
+    exts, clfs, xs, ys = _data(fold)
+    losses, path = batched.fedcvt_sessions_seeds(
+        exts, clfs, cfg.iter_hparams(), xs, ys, schedules,
+        [s.split.unaligned for s in fold.entries], u_schedules, cfg.engine_mode, fold.active,
     )
-    losses = iterative.run_iterative_session(
-        step, s.split.aligned, s.split.labels, sched, active_steps=active
-    )
-    diags.update(rounds=rounds, Q=cfg.fedbcd_q)
-    return _finish(s, extractors, ledger, losses, diags, fault)
+    return _finish(fold, losses, path, {"iterations": cfg.iterations})
 
 
 def run_fedcvt(
@@ -293,61 +446,8 @@ def run_fedcvt(
     device: DeviceLike = None,
     fault: Optional[FaultSpec] = None,
 ) -> VFLResult:
-    """FedCVT-style semi-supervised baseline: vanilla iterations plus, per
-    iteration, each party's unaligned batch with Eq. 10-estimated missing
-    reps and pseudo-labels above ``cfg.fedcvt_threshold``. Overlap and
-    unaligned reps go up and both gradients come down: 2× vanilla's bytes,
-    retry rounds included."""
-    cfg = cfg if cfg is not None else IterativeConfig()
-    ledger = CommLedger()
-    s = _setup(seed, split, extractors, ssl_cfgs, cfg, None, None, device)
-    sched = iterative.build_iteration_schedule(
-        s.seed0, s.split.labels.shape[0], cfg.batch_size, cfg.iterations
-    )
-    # seeded literally 0, as the reference seeds them: only pool sizes and bs enter
-    u_scheds = iterative.build_unaligned_schedule(
-        0, [x.shape[0] for x in s.split.unaligned], s.bs, cfg.iterations
-    )
-    active, diags = log_fault_plan(
-        ledger, fault, [e.rep_dim for e in extractors], cfg.iterations, s.bs, payload_factor=2
-    )
-    step = iterative.make_fedcvt_step_fn(s.extractors, s.server.classifier, cfg.iter_hparams())
-    losses = iterative.run_iterative_session(
-        step, s.split.aligned, s.split.labels, sched, s.split.unaligned, u_scheds, active
-    )
-    diags["iterations"] = cfg.iterations
-    return _finish(s, extractors, ledger, losses, diags, fault)
-
-
-def _seeds_loop(
-    runner, seeds, splits, extractors, ssl_cfgs, cfg, device, faults
-) -> List[VFLResult]:
-    """``runner`` at each seed, one after another. Without faults every
-    result holds the first seed's ledger (the prototype), after the check
-    that every seed moved the same bytes; a faulted entry keeps its own."""
-    results = [
-        runner(s, sp, ex, sc, cfg, device=device, fault=None if faults is None else faults[i])
-        for i, (s, sp, ex, sc) in enumerate(zip(seeds, splits, extractors, ssl_cfgs))
-    ]
-    if faults is None or all(f is None for f in faults):
-        protocol._assert_ledgers_identical([r.ledger for r in results])
-        for res in results[1:]:
-            res.ledger = results[0].ledger
-    for res in results:
-        res.diagnostics.update(seed_fold=1, engine_path="python", device_fold=1)
-    return results
-
-
-def run_vanilla_seeds(seeds, splits, extractors, ssl_cfgs, cfg=None, device=None, faults=None):
-    """:func:`run_vanilla` over S seeds (a per-seed loop, see the module doc)."""
-    return _seeds_loop(run_vanilla, seeds, splits, extractors, ssl_cfgs, cfg, device, faults)
-
-
-def run_fedcvt_seeds(seeds, splits, extractors, ssl_cfgs, cfg=None, device=None, faults=None):
-    """:func:`run_fedcvt` over S seeds (a per-seed loop, see the module doc)."""
-    return _seeds_loop(run_fedcvt, seeds, splits, extractors, ssl_cfgs, cfg, device, faults)
-
-
-def run_fedbcd_seeds(seeds, splits, extractors, ssl_cfgs, cfg=None, device=None, faults=None):
-    """:func:`run_fedbcd` over S seeds (a per-seed loop, see the module doc)."""
-    return _seeds_loop(run_fedbcd, seeds, splits, extractors, ssl_cfgs, cfg, device, faults)
+    """FedCVT-style baseline at one seed: the E = 1 case of
+    :func:`run_fedcvt_seeds`."""
+    return run_fedcvt_seeds(
+        [seed], [split], [extractors], [ssl_cfgs], cfg, device, None if fault is None else [fault]
+    )[0]

@@ -795,9 +795,11 @@ def _few_shot_finetune_seeds(
     device: DeviceLike = None,
     faults: Optional[Sequence[Optional[FaultSpec]]] = None,
 ) -> List[VFLResult]:
-    """Tab. 1's last row over S entries: the few-shot fold, then
-    ``baselines.run_vanilla`` on each entry, from its trained state, on its
-    copy of the fold's ledger (see :func:`run_few_shot_finetune`)."""
+    """Tab. 1's last row over S entries: the few-shot fold hands every
+    entry's trained clients and fitted server straight to ONE
+    ``baselines.run_vanilla_seeds`` fold, which continues the few-shot
+    fold's ledger (see :func:`run_few_shot_finetune`); no per-entry loop in
+    between."""
     from repro_torch.core import baselines  # deferred: baselines imports this module
 
     if faults is not None and any(f is not None for f in faults):
@@ -815,24 +817,21 @@ def _few_shot_finetune_seeds(
         client_lr=cfg.client_lr / 10,
         server_lr=cfg.server_lr / 10,
     )
-    results = []
-    for ent, few in zip(fold.entries, fews):
-        ledger = few.ledger if len(fews) == 1 else _copy_ledger(few.ledger)
-        res = baselines.run_vanilla(
-            seed_from(ent.host),
-            ent.split,
-            ent.specs,
-            ent.ssl_cfgs,
-            it_cfg,
-            clients=few.clients,
-            server=few.server,
-            ledger=ledger,
-            device=ent.split.labels.device,
-        )
+    results = baselines.run_vanilla_seeds(
+        [seed_from(ent.host) for ent in fold.entries],
+        [ent.split for ent in fold.entries],
+        [ent.specs for ent in fold.entries],
+        [ent.ssl_cfgs for ent in fold.entries],
+        it_cfg,
+        clients_per_seed=[few.clients for few in fews],
+        servers=[few.server for few in fews],
+        ledger=fold.shared,  # one ledger spans both stages
+        device=fold.clock.device,
+    )
+    for res, few in zip(results, fews):
         step_ms = dict(few.diagnostics["step_ms"])
         step_ms.update({f"finetune_{k}": v for k, v in res.diagnostics["step_ms"].items()})
         res.diagnostics.update(few.diagnostics, fewshot_metric=few.metric, step_ms=step_ms)
-        results.append(res)
     return results
 
 
@@ -939,9 +938,10 @@ def run_scenarios_seeds(
     k-means search, stacked server fits. Session-cache keys carry no batch
     width, so a C ≥ 2 fold against a warm C = 1 cache builds nothing fresh.
     Each result's ``diagnostics["seed_fold"]`` / ``["scenario_fold"]`` record
-    the fold that ran. Grids whose splits differ in shape, runners whose
-    impl does not fold (the iterative baselines, for now) and unregistered
-    runners go scenario by scenario (``scenario_fold`` 1); :func:`run_seeds`
+    the fold that ran; the iterative baselines fold the same way, into one
+    stacked S·C session (``baselines.run_*_seeds``). Grids whose splits
+    differ in shape and unregistered runners go scenario by scenario
+    (``scenario_fold`` 1); :func:`run_seeds`
     is the C = 1 case. ``faults`` is an optional C×S grid of FaultSpecs,
     carried as per-entry data. Per-seed state kwargs are refused."""
     from repro_torch.core import runners as registry  # deferred: the registry imports this module
@@ -974,7 +974,6 @@ def run_scenarios_seeds(
     flat_splits = [sp for row in splits for sp in row]
     if (
         entry is not None
-        and entry.folds
         and num_scenarios > 1
         and _splits_are_homogeneous(flat_splits)
     ):
@@ -1022,8 +1021,9 @@ def run_seeds(
     sessions, k-means runs and server fits; each seed draws exactly what
     its single-seed run draws, so ``run_seeds`` equals a loop of single-seed
     runs up to the rounding of batched products, with byte-identical
-    ledgers (each result holds its own copy). The iterative baselines loop
-    per seed for now. ``faults`` is an optional per-seed list; per-seed
+    ledgers (each result holds its own copy). The iterative baselines
+    (``run_vanilla``, ``run_fedcvt``, ``run_fedbcd``) fold their S sessions
+    into one stacked session. ``faults`` is an optional per-seed list; per-seed
     state kwargs (``clients``, ``server``, ``ledger``) are refused."""
     if not (len(splits) == len(extractors) == len(ssl_cfgs) == len(seeds)):
         raise ValueError("run_seeds needs one split / extractor list / ssl-config list per seed")

@@ -10,10 +10,10 @@ A :class:`RunnerEntry` is a method's contract: the single-seed runner (the
 S = 1 case of its impl), the impl, the config family it takes
 (``ProtocolConfig`` or ``IterativeConfig``), the ledger policy (every impl
 logs one prototype ledger; orchestration copies it per result), the
-stateful kwargs that cannot thread through a fold, serving eligibility, and
-``folds``: whether the impl stacks its entries (the protocol runners) or
-loops over them (the iterative baselines, whose stacked fold is still to
-come). Unregistered runners work everywhere through the per-seed loop.
+stateful kwargs that cannot thread through a fold, and serving
+eligibility. Every impl takes a whole C×S grid as one fold: the protocol
+runners' stacked S·C·K sessions, the iterative baselines' S·C sessions
+(stacked where ``engine.iterative.stack_pays``). Unregistered runners work everywhere through the per-seed loop.
 """
 
 from __future__ import annotations
@@ -42,7 +42,6 @@ class RunnerEntry:
     stateful_kwargs: FrozenSet[str] = STATE_KWARGS
     servable: bool = True  # the result exports as a TrainedVFLModel
     aliases: Tuple[str, ...] = ()
-    folds: bool = True  # the impl stacks its entries into one program
 
 
 _BY_NAME: Dict[str, RunnerEntry] = {}
@@ -109,13 +108,9 @@ RUNNERS: Tuple[RunnerEntry, ...] = tuple(
         ),
         RunnerEntry(
             "vanilla", baselines.run_vanilla, baselines.run_vanilla_seeds, kind="iterative",
-            aliases=("iterative",), folds=False,
+            aliases=("iterative",),
         ),
-        RunnerEntry(
-            "fedcvt", baselines.run_fedcvt, baselines.run_fedcvt_seeds, kind="iterative", folds=False
-        ),
-        RunnerEntry(
-            "fedbcd", baselines.run_fedbcd, baselines.run_fedbcd_seeds, kind="iterative", folds=False
-        ),
+        RunnerEntry("fedcvt", baselines.run_fedcvt, baselines.run_fedcvt_seeds, kind="iterative"),
+        RunnerEntry("fedbcd", baselines.run_fedbcd, baselines.run_fedbcd_seeds, kind="iterative"),
     )
 )

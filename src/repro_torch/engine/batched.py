@@ -16,7 +16,11 @@ i // K", so S seeds × C scenarios × K parties ride one axis:
   axis (``dispatch.estimate_missing_batched``: one ``sdpa_estimator``
   launch), then the Eq. 8-9 gate per entry with that entry's classifiers;
 * :func:`fit_sessions_batched`: server classifier fits stacked, each entry
-  on its own schedule.
+  on its own schedule;
+* :func:`splitnn_sessions_seeds` / :func:`fedcvt_sessions_seeds` /
+  :func:`fedbcd_sessions_seeds`: the iterative baselines' sessions of every
+  entry as one stacked session (``iterative.run_iterative_session_seeds``)
+  where ``iterative.stack_pays``, else one after another.
 
 Randomness is reproduced, not re-derived: each entry keeps its own
 generators, and every draw is made in the order the single-seed loop makes
@@ -283,3 +287,77 @@ def fit_sessions_batched(
             for e, m in enumerate(mods):
                 for name, p in m.named_parameters():
                     p.copy_(params[name][e])
+
+
+# ------------------------------------------ iterative baselines: the fold
+def _assert_entry_models_equal(extractors_per_entry, classifiers) -> tuple:
+    """Every entry's party specs and classifier spec equal, party by party
+    (one built step serves the fold); returns them."""
+    specs0 = tuple(sessions.module_spec(e) for e in extractors_per_entry[0])
+    clf0 = sessions.module_spec(classifiers[0])
+    for exts, clf in zip(extractors_per_entry[1:], classifiers[1:]):
+        if tuple(sessions.module_spec(e) for e in exts) != specs0 or sessions.module_spec(clf) != clf0:
+            raise ValueError(
+                "seed-batched iterative sessions require semantically equal party extractors "
+                "and server classifier across every entry of the fold"
+            )
+    if None in specs0 or clf0 is None:
+        raise ValueError("iterative sessions need modules an ExtractorSpec describes")
+    return specs0, clf0
+
+
+def _iterative_sessions(
+    kind, extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode,
+    q=None, xs_u_per_entry=None, u_schedules=None, active_steps=None,
+) -> Tuple[torch.Tensor, str]:
+    from repro_torch.engine import iterative  # deferred: iterative imports core, core this module
+
+    specs, clf_spec = _assert_entry_models_equal(extractors_per_entry, classifiers)
+    shapes = [tuple(x.shape[1:]) for x in xs_per_entry[0]]
+    return iterative.run_iterative_session_seeds(
+        iterative.session_cache_key(kind, specs, clf_spec, hp, q),
+        lambda: iterative.StackedIterStep(kind, specs, shapes, clf_spec, hp, q),
+        list(zip(extractors_per_entry, classifiers)),
+        xs_per_entry, ys, schedules, mode, xs_u_per_entry, u_schedules, active_steps,
+    )
+
+
+def splitnn_sessions_seeds(
+    extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode="auto", active_steps=None
+) -> Tuple[torch.Tensor, str]:
+    """E entries of one SplitNN session as one fold, trained in place.
+    ``extractors_per_entry[e]`` / ``classifiers[e]`` are entry e's modules
+    (equal specs across entries, :func:`_assert_entry_models_equal`),
+    ``xs_per_entry[e]`` / ``ys[e]`` / ``schedules[e]`` its data and
+    minibatch schedule, ``active_steps[e]`` its commit horizon (None: every
+    step). Returns the (E, iters) losses and the path that ran."""
+    return _iterative_sessions(
+        "splitnn", extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode,
+        active_steps=active_steps,
+    )
+
+
+def fedcvt_sessions_seeds(
+    extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, xs_u_per_entry,
+    u_schedules, mode="auto", active_steps=None,
+) -> Tuple[torch.Tensor, str]:
+    """E entries of one FedCVT-style session as one fold; each entry's
+    private pools and unaligned schedules ride the same entry axis. As
+    :func:`splitnn_sessions_seeds` otherwise."""
+    return _iterative_sessions(
+        "fedcvt", extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode,
+        xs_u_per_entry=xs_u_per_entry, u_schedules=u_schedules, active_steps=active_steps,
+    )
+
+
+def fedbcd_sessions_seeds(
+    extractors_per_entry, classifiers, hp, q, xs_per_entry, ys, schedules, mode="auto",
+    active_steps=None,
+) -> Tuple[torch.Tensor, str]:
+    """E entries of one FedBCD-p session (Q local updates a round) as one
+    fold; ``active_steps`` counts rounds. As :func:`splitnn_sessions_seeds`
+    otherwise: returns the (E, rounds) losses and the path."""
+    return _iterative_sessions(
+        "fedbcd", extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode,
+        q=q, active_steps=active_steps,
+    )

@@ -4,7 +4,8 @@
 ``benchmarks/frontier_baseline.json``: a clean sweep passes, and each floor
 (the 100× bytes advantage, the one-shot and few-shot mean and worst-seed
 margins, the recorded one-shot bytes, seed-invariant bytes), each fold rule
-of the protocol methods and each fault rule fails on its own. Then one
+(the protocol methods' and the iterative baselines') and each fault rule
+fails on its own. Then one
 small end-to-end run of the CLI on the CPU.
 """
 
@@ -38,8 +39,7 @@ def _row(scenario, method, seed, metric, comm_bytes, **kw):
         kind="train", metric_name="auc", metric=metric, comm_bytes=comm_bytes, comm_times=3,
         scenario=scenario, seed=seed, method=method, wall_s=0.1, cache_misses=0, group_size=1,
         vmap_eligible=True, overlap=32, num_parties=2, modality="tabular",
-        seed_fold=2 if protocol else 1, scenario_fold=1,
-        engine_path="vmap" if protocol else "python",
+        seed_fold=2, scenario_fold=1, engine_path="vmap",
     )
     if protocol:
         row["kernel_fold"] = 4
@@ -94,6 +94,10 @@ FAILURES = {
     ),
     "scenario fold": (lambda rows: _set(rows, "one_shot", group_size=2), "per-scenario loop"),
     "engine path": (lambda rows: _set(rows, "one_shot", engine_path="python"), "not the stack"),
+    "iterative seed fold": (lambda rows: _set(rows, "iterative", seed_fold=1), "per-seed loop"),
+    "iterative engine path": (
+        lambda rows: _set(rows, "fedcvt", engine_path="python"), "not the stack"
+    ),
     "kernel fold": (lambda rows: _set(rows, "one_shot", kernel_fold=1), "kernel_fold=1"),
     "sdpa fold": (lambda rows: _set(rows, "few_shot", sdpa_fold=1), "sdpa_fold=1"),
 }
@@ -107,7 +111,10 @@ def test_each_floor_and_fold_rule_fails_on_its_own(case):
 
 
 def test_the_iterative_baselines_and_heterogeneous_parties_are_exempt_from_the_fold_rules():
-    rows = _set(clean_rows(), "iterative", seed_fold=1, engine_path="python")
+    """Only from the engine-path rule, and only where the stack policy keeps
+    the entries on the loop (``vmap_eligible`` False: one entry, or CNN
+    parties); the seed and scenario folds hold on every row."""
+    rows = _set(clean_rows(), "iterative", vmap_eligible=False, engine_path="python")
     assert tf.check_gate(rows) == []
     rows = _set(clean_rows(), "one_shot", vmap_eligible=False, engine_path="python", kernel_fold=2)
     assert tf.check_gate(rows) == []
@@ -123,7 +130,7 @@ def fault_rows():
                 extra = dict(
                     fault_kind="none" if fault is None else fault.kind,
                     parties_survived=3 if dropout else 4, num_parties=4, group_size=9,
-                    scenario_fold=9 if method == "one_shot" else 1,
+                    scenario_fold=9,
                 )
                 if method == "one_shot":
                     extra.update(degraded_metric=0.7, kernel_fold=72)
@@ -213,7 +220,9 @@ def test_the_cli_runs_on_the_cpu(tmp_path, capsys):
             assert (r["seed_fold"], r["scenario_fold"], r["kernel_fold"]) == (2, 1, 4)
             assert r["engine_path"] == "vmap" and r["comm_bytes"] == 12288
         else:
-            assert (r["seed_fold"], r["engine_path"]) == (1, "python")
+            # two entries take the loop under "auto" (iterative.stack_pays), and say so
+            assert (r["seed_fold"], r["scenario_fold"], r["engine_path"]) == (2, 1, "python")
+            assert r["vmap_eligible"] is False
             assert r["comm_bytes"] == 3276800
     assert set(blob["session_cache"]) >= {"ssl", "server_fit", "kmeans"}
     with pytest.raises(KeyError, match="unknown runner"):

@@ -882,3 +882,63 @@ def test_estimate_missing_batched_against_the_plain_route(entries, num_parties, 
             torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=0)
             oracle = _oracle64(h_u, h_o[k], h_o[j])
             assert (g.cpu().double() - oracle).abs().max().item() <= TOL
+
+
+def _rel_param_gap(got, want) -> float:
+    """max |Δ| over every parameter of two results, over the largest |param|."""
+    ps = [p for c in got.clients for p in c.extractor.parameters()]
+    ps += list(got.server.classifier.parameters())
+    qs = [p for c in want.clients for p in c.extractor.parameters()]
+    qs += list(want.server.classifier.parameters())
+    err = max((p - q).abs().max().item() for p, q in zip(ps, qs, strict=True))
+    return err / max(q.abs().max().item() for q in qs)
+
+
+@pytest.mark.parametrize("method", ["run_vanilla", "run_fedbcd", "run_fedcvt"])
+def test_folded_baselines_on_the_card(method, cuda):
+    """``run_seeds`` of each baseline on hard/overlap-32 at seeds 0-1 and 20
+    iterations, on the card: the CPU's ledgers, the stacked session
+    (``engine_mode`` "vmap": two entries take the loop under "auto"), no
+    kernel launch, and every seed within 1e-4 of the largest parameter of
+    its single-seed run on the card (the loop)."""
+    import dataclasses
+
+    from repro_torch.core.protocol import run_seeds
+
+    cfg = baselines.IterativeConfig(iterations=20)
+    seeds = range(2)
+    fn = getattr(baselines, method)
+    cpu = _run_seeds_on(fn, _fold_bundles("hard/overlap-32", seeds, "cpu"), seeds, cfg, "cpu")
+    bundles = _fold_bundles("hard/overlap-32", seeds, cuda)
+    before, before_km = ops.LAUNCHES, kops.LAUNCHES
+    got = run_seeds(
+        fn, list(seeds), [b.split for b in bundles], [b.extractors for b in bundles],
+        [b.ssl_cfgs for b in bundles], dataclasses.replace(cfg, engine_mode="vmap"), device=cuda,
+    )
+    assert (ops.LAUNCHES, kops.LAUNCHES) == (before, before_km)
+    for seed, b, g, w in zip(seeds, bundles, got, cpu):
+        assert [e.__dict__ for e in g.ledger.events] == [e.__dict__ for e in w.ledger.events]
+        assert (g.diagnostics["engine_path"], g.diagnostics["seed_fold"]) == ("vmap", 2)
+        loop = fn(seed, b.split, b.extractors, b.ssl_cfgs, cfg, device=cuda)
+        assert loop.diagnostics["engine_path"] == "python"
+        assert _rel_param_gap(g, loop) <= 1e-4
+        assert bool(torch.isfinite(g.diagnostics["losses"]).all()) and 0.0 <= g.metric <= 1.0
+
+
+def test_folded_few_shot_finetune_on_the_card(cuda):
+    """``run_seeds(run_few_shot_finetune)`` on hard/overlap-32 at seeds 0-1,
+    2 epochs: the few-shot fold's exact launches (K = 2: 2
+    ``sdpa_estimator``, one k-means search of 27) and none from the folded
+    finetune; the CPU's ledgers, 5 + 2·200 comm times."""
+    cfg = ProtocolConfig(client_epochs=2, server_epochs=2)
+    seeds = range(2)
+    want = _run_seeds_on(run_few_shot_finetune, _fold_bundles("hard/overlap-32", seeds, "cpu"), seeds,
+                         cfg, "cpu")
+    bundles = _fold_bundles("hard/overlap-32", seeds, cuda)
+    before, before_km = ops.LAUNCHES, kops.LAUNCHES
+    got = _run_seeds_on(run_few_shot_finetune, bundles, seeds, cfg, cuda)
+    assert (ops.LAUNCHES - before, kops.LAUNCHES - before_km) == (2, cfg.kmeans_iters + 2)
+    for g, w in zip(got, want):
+        assert [e.__dict__ for e in g.ledger.events] == [e.__dict__ for e in w.ledger.events]
+        assert g.ledger.comm_times() == 5 + 2 * 200
+        assert 0.0 <= g.diagnostics["fewshot_metric"] <= 1.0 and 0.0 <= g.metric <= 1.0

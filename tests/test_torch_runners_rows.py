@@ -1,13 +1,14 @@
 """The port's runner registry and typed rows against the reference's.
 
 The registry's names, aliases, config families and refused kwargs equal
-``repro.core.runners``; unknown names raise; the protocol runners fold and
-the iterative baselines (their fold still to come) loop, saying so in their
+``repro.core.runners``; unknown names raise; every runner folds, the
+iterative baselines too (by loop or stacked), and says so in its
 diagnostics. ``rows`` has the reference's key sets, ``training_row`` builds
 the reference's row from the same result, a one-shot run's
 ``summary_row`` has the reference's keys, and core-key clashes raise.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -22,7 +23,7 @@ from repro_torch.core import baselines, protocol, rows, runners
 from repro_torch.core.comm import CommLedger
 
 from test_torch_catalog import one_torch_thread  # noqa: F401 (autouse fixture)
-from test_torch_seed_fold import ONE_EPOCH, SEEDS, port_splits, specs_of
+from test_torch_seed_fold import ONE_EPOCH, port_splits, specs_of
 
 
 def test_the_names_and_aliases_are_the_references():
@@ -41,7 +42,8 @@ def test_each_entry_matches_the_reference(name):
     )
     assert got.stateful_kwargs == want.stateful_kwargs
     assert runners.resolve(got.runner) is got and runners.resolve(name) is got
-    assert got.folds == (got.kind == "protocol")
+    # every impl folds a whole grid, as the reference's: no per-entry switch
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
     assert got.seeds_impl.__name__ == want.seeds_impl.__name__
 
 
@@ -121,17 +123,24 @@ def test_a_one_shot_summary_row_has_the_references_keys():
 
 
 def test_the_iterative_seed_entries_loop_and_say_so():
+    """The iterative entries fold (``seed_fold`` S) and say which path ran:
+    two entries keep the per-entry loop under "auto", four share one stacked
+    session (``iterative.stack_pays``)."""
     name = "hard/overlap-32"
-    splits = port_splits(name)
     exts, ssls = specs_of(name)
     cfg = baselines.IterativeConfig(iterations=8)
-    results = protocol.run_seeds(
-        baselines.run_fedcvt, list(SEEDS), splits, [exts] * 2, [ssls] * 2, cfg, device="cpu"
-    )
-    for seed, split, res in zip(SEEDS, splits, results):
-        solo = baselines.run_fedcvt(seed, split, exts, ssls, cfg, device="cpu")
-        assert res.metric == solo.metric
-        d = res.diagnostics
-        assert (d["seed_fold"], d["scenario_fold"], d["engine_path"]) == (1, 1, "python")
-        assert res.ledger.summary() == solo.ledger.summary()
-    assert results[0].ledger is not results[1].ledger
+    all_splits = port_splits(name, seeds=range(4))
+    for num_seeds, path in ((2, "python"), (4, "vmap")):
+        seeds, splits = range(num_seeds), all_splits[:num_seeds]
+        results = protocol.run_seeds(
+            baselines.run_fedcvt, list(seeds), splits, [exts] * num_seeds, [ssls] * num_seeds,
+            cfg, device="cpu",
+        )
+        for seed, split, res in zip(seeds, splits, results):
+            solo = baselines.run_fedcvt(seed, split, exts, ssls, cfg, device="cpu")
+            assert res.metric == solo.metric
+            d = res.diagnostics
+            assert (d["seed_fold"], d["scenario_fold"], d["engine_path"]) == (num_seeds, 1, path)
+            assert (solo.diagnostics["seed_fold"], solo.diagnostics["engine_path"]) == (1, "python")
+            assert res.ledger.summary() == solo.ledger.summary()
+        assert len({id(r.ledger) for r in results}) == num_seeds
