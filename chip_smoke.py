@@ -109,6 +109,19 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
 11. partial-party queries (K = 2 over B's 2048 refreshed overlap reps: one
    B = 1 launch each; K = 4 (16, 16, 3) patches with seeded random weights:
    one B = 3 launch each), held against the plain route on the same inputs;
+11a. deploy: B's, A's and the patches' artifacts saved with the port's
+   ``save_artifact`` and loaded back on the card: logits on 1024 rows
+   bit-identical to the in-memory artifact's, and B's partial-party logits
+   too; each reloaded artifact served through the fused, session-cached
+   ``ServingEngine`` at capacities 1, 64 and 1024 by
+   ``benchmarks/torch_serving.py::bench_artifact`` over DEPLOY_REQUESTS
+   requests a capacity (the path the rule chose at each, p50 / p99 /
+   rows/s, no fresh ``"serving"`` miss after the first
+   capacity; the patches take the stacked path up to 64 rows and the
+   composed one at 1024); A (``hard/overlap-32``) held to the reference's
+   serving gate (``check_serving_gate`` against the unchanged
+   ``benchmarks/serving_baseline.json``): any violation fails; the CNNs'
+   batched vs unbatched logits within LOGIT_RTOL;
 12. zoo, small: reduced phi4-mini (2 layers, G = 2, f32 activations) served
    on the card and on the CPU's plain route with the same weights: equal
    greedy tokens, logits within 1e-4;
@@ -123,7 +136,7 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    forward.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
-5-6, then 7-8, then 9, then 9a, then 9b, then 9c, then 10-11, then 13) and read just
+5-6, then 7-8, then 9, then 9a, then 9b, then 9c, then 10-11a, then 13) and read just
 after. Output ends
 with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
@@ -139,6 +152,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -149,7 +163,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import scenarios  # noqa: E402
-from repro_torch.checkpoint import ExtractorSpec, init_artifact  # noqa: E402
+from repro_torch.checkpoint import (  # noqa: E402
+    ExtractorSpec,
+    init_artifact,
+    load_artifact,
+    save_artifact,
+)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import baselines, estimator  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
@@ -174,7 +193,7 @@ from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
-from repro_torch.launch.vfl_serve import ServingEngine, serve_traffic  # noqa: E402
+from repro_torch.launch.vfl_serve import ServingEngine, serve_traffic, serving_path  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.zoo_extractor import make_zoo_extractor  # noqa: E402
 
@@ -197,6 +216,11 @@ PLAN_RANGES = (1, 2, 4, 8, 16, 32, 64)
 # pick another convolution algorithm for a padded batch), relative to the
 # logits' scale.
 LOGIT_RTOL = 1e-4
+# [deploy]: the reference serving gate's batch sizes (benchmarks/serving.py)
+DEPLOY_CAPACITIES = (1, 64, 1024)
+# [deploy]: timed requests a capacity, enough for a p99 that is not the
+# largest of a handful
+DEPLOY_REQUESTS = 300
 # (B, N_u, N_o, d, d_b): the partial-party launches of the serving path
 # (K = 2: B = 1; K = 4: B = 3), a ragged N_o, odd sizes with d != d_b,
 # few-shot step ③'s query pool (one-shot B's private rows of a party: one
@@ -1052,7 +1076,7 @@ def phase_decode_plans(gen) -> None:
 
 def phase_one_shot_a(line: str) -> tuple:
     """Alg. 1 on hard/overlap-32 (the port's own data); returns the k-means
-    launches it should have made and the result."""
+    launches it should have made, the result and its artifact."""
     spec = scenarios.HARD_OVERLAP_32
     bundle = scenarios.build(spec, seed=SEED, device="cuda")
     cfg = ProtocolConfig(
@@ -1070,7 +1094,7 @@ def phase_one_shot_a(line: str) -> tuple:
         f"[one-shot A] {spec.name}: AUC {res.metric:.4f} | {res.ledger.total_bytes()} bytes in "
         f"{res.ledger.comm_times()} comm times | purity {purity} | step ms: {steps} | {line}"
     )
-    return cfg.kmeans_iters + 2, res
+    return cfg.kmeans_iters + 2, res, res.to_artifact(spec.name, bundle.split)
 
 
 def phase_one_shot_b(line: str):
@@ -2120,7 +2144,8 @@ def phase_serving(art, gen, line: str) -> None:
 
 def phase_partial(art, gen, queries: int, line: str) -> int:
     """Partial-party queries, each held against the plain route; returns
-    the number of kernel launches they should have made."""
+    the number of kernel launches they should have made: one a query (its
+    K−1 Eq. 10 estimates fused)."""
     engine = ServingEngine(art, capacity=CAPACITY, device="cuda")
     k_parties = art.num_parties
     worst, times = 0.0, []
@@ -2148,6 +2173,68 @@ def phase_partial(art, gen, queries: int, line: str) -> int:
         f"| vs plain route max rel diff {worst:.2e} | {line}"
     )
     return queries
+
+
+def phase_deploy(arts: dict, gen, line: str) -> int:
+    """Each artifact of ``arts`` (name → artifact: B, A, the patches) saved
+    by the port and loaded back on the card, the reloaded one served
+    through the fused engine (module docstring, 11a); returns the
+    ``sdpa_estimator`` launches B's partial-party queries should have made:
+    one a query."""
+    from benchmarks import torch_serving
+
+    loaded = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, art in arts.items():
+            t0 = time.perf_counter()
+            path = save_artifact(os.path.join(tmp, name), art)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            loaded[name] = load_artifact(os.path.join(tmp, name), device="cuda")
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            xs = [torch.randn(CAPACITY, *s, generator=gen, device="cuda") for s in art.feature_shapes]
+            same = torch.equal(loaded[name].predict_logits(xs), art.predict_logits(xs))
+            check(same, f"{name} reloaded: logits differ from the in-memory artifact's")
+            print(
+                f"[deploy] {name} ({art.scenario}, K={art.num_parties}) saved "
+                f"({os.path.getsize(path) / 2**20:.2f} MiB, {save_ms:.1f} ms) and loaded on the "
+                f"card ({load_ms:.1f} ms): logits on {CAPACITY} rows bit-identical to the "
+                f"in-memory artifact's"
+            )
+    b = loaded["B"]
+    engines = [ServingEngine(a, capacity=CAPACITY, device="cuda") for a in (b, arts["B"])]
+    for k in range(b.num_parties):
+        x = torch.randn(CAPACITY, *b.feature_shapes[k], generator=gen, device="cuda")
+        got, mem = (e.predict_logits_partial(x, k) for e in engines)
+        check(torch.equal(got, mem), f"B reloaded: party {k}'s partial-party logits differ")
+    print(f"[deploy] B reloaded: party 0's and 1's partial-party logits bit-identical | {line}")
+    for name, art in loaded.items():
+        rows = torch_serving.bench_artifact(
+            art, batch_sizes=DEPLOY_CAPACITIES, requests=DEPLOY_REQUESTS
+        )
+        misses = [r["cache_misses"] for r in rows]
+        paths = [serving_path(art, c) for c in DEPLOY_CAPACITIES]
+        check(misses[1:] == [0] * (len(rows) - 1), f"{name}: fresh serving misses {misses}")
+        print(
+            f"[deploy] {name} reloaded, served through the fused engine at capacities "
+            f"{list(DEPLOY_CAPACITIES)} on paths {paths}: fresh serving misses {misses} | {line}"
+        )
+        if name == "A":
+            problems = torch_serving.check_serving_gate(rows)
+            for p in problems:
+                print(f"[deploy] SERVING GATE VIOLATION: {p}")
+            check(not problems, f"A: {len(problems)} serving gate violation(s)")
+            print(
+                f"[deploy] serving gate on {art.scenario} (benchmarks/serving_baseline.json): "
+                "no violation"
+            )
+        else:  # the CNN: held relative to the logits' scale, as [serve] holds B
+            xs = [torch.randn(CAPACITY, *s, generator=gen, device="cuda") for s in art.feature_shapes]
+            scale = max(1.0, art.predict_logits(xs).abs().max().item())
+            worst = max(r["parity_max_abs"] for r in rows) / scale
+            check(worst <= LOGIT_RTOL, f"{name}: batched vs unbatched logits differ by {worst}")
+    return 2 * b.num_parties  # one a query, on each engine
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2334,7 +2421,7 @@ def main() -> int:
     # ---- the training path: counters from 0, read right after
     torch.cuda.synchronize()
     ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
-    expected_km, one_shot_a = phase_one_shot_a(line)
+    expected_km, one_shot_a, art_a = phase_one_shot_a(line)
     art_b, runs_b = phase_one_shot_b(line)
     expected_km += runs_b
     torch.cuda.synchronize()
@@ -2469,6 +2556,7 @@ def main() -> int:
     phase_serving(art_b, gen, line)
     expected = phase_partial(art_b, gen, 4, line)
     expected += phase_partial(patches, gen, 3, line)
+    expected += phase_deploy({"B": art_b, "A": art_a, "patches": patches}, gen, line)
     torch.cuda.synchronize()
     launches = ops.LAUNCHES
     check(launches == expected, f"sdpa_estimator launched {launches} times, expected {expected}")
@@ -2479,7 +2567,7 @@ def main() -> int:
     t0 = time.time()
     phase_zoo_small()
     zoo_small_s = time.time() - t0
-    del art_b, patches
+    del art_b, art_a, patches
     torch.cuda.empty_cache()
 
     # ---- the model-zoo serving path: counters from 0, read right after

@@ -5,8 +5,9 @@ from repro_torch.checkpoint.artifact import (
     from_state,
     init_artifact,
     load_artifact,
+    save_artifact,
 )
-from repro_torch.checkpoint.ckpt import latest_step, load_checkpoint
+from repro_torch.checkpoint.ckpt import latest_step, load_checkpoint, save_checkpoint
 
 __all__ = [
     "ARTIFACT_VERSION",
@@ -17,4 +18,6 @@ __all__ = [
     "latest_step",
     "load_artifact",
     "load_checkpoint",
+    "save_artifact",
+    "save_checkpoint",
 ]

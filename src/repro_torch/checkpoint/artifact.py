@@ -1,20 +1,28 @@
-"""The trained-VFL deployment artifact, loaded into the port's modules.
+"""The trained-VFL deployment artifact: saved, loaded and rebuilt in the
+port's modules.
 
-Counterpart of ``repro.checkpoint.artifact``. An artifact directory written
-by the reference's ``save_artifact`` holds one ``ckpt_00000000.npz``: the
-parameter pytree
+Counterpart of ``repro.checkpoint.artifact``. An artifact directory holds
+one ``ckpt_00000000.npz``: the parameter pytree
 
     {"clients": [{"extractor": θ_k, "head": θ_k^aux}, ...],
      "overlap_reps": [H_o^k, ...],      # optional: Eq. 10 keys/values
      "server": θ_c}
 
-plus JSON metadata (artifact version, scenario, classes, per-party feature
-shapes and :class:`ExtractorSpec` records, protocol provenance).
-:func:`load_artifact` rebuilds every module from the specs alone, reads the
-pytree in the reference's leaf order and carries it across with
-:func:`repro_torch.bridge.load_jax_params`. :func:`from_state` builds the
-artifact of a model the port trained (``VFLResult.to_artifact``), and
-:func:`init_artifact` a seeded untrained one. Saving is not ported yet.
+in the reference's keys and layouts, every leaf float32, plus JSON metadata
+(artifact version, scenario, classes, per-party feature shapes and
+:class:`ExtractorSpec` records, protocol provenance). :func:`save_artifact`
+writes it through :func:`repro_torch.bridge.to_jax_params`, so the
+reference's ``load_artifact`` reads what the port saved; :func:`load_artifact`
+reads what either package saved: it rebuilds every module from the specs
+alone, reads the pytree in the reference's leaf order and carries it across
+with :func:`repro_torch.bridge.load_jax_params`. :func:`from_state` builds
+the artifact of a model the port trained (``VFLResult.to_artifact``), and
+:func:`init_artifact` a seeded untrained one.
+
+    art = result.to_artifact("hard/overlap-32", split=split)
+    save_artifact("artifacts/hard32", art)
+    art2 = load_artifact("artifacts/hard32")          # on cuda
+    logits = art2.predict_logits([x_party0, x_party1])
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch.bridge import load_jax_params, to_jax_params
-from repro_torch.checkpoint.ckpt import load_checkpoint, load_metadata
+from repro_torch.checkpoint.ckpt import load_checkpoint, load_metadata, save_checkpoint
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.extractors import make_classifier, make_cnn_extractor, make_mlp_extractor
 
@@ -56,6 +64,15 @@ class ExtractorSpec:
         raise ValueError(
             f"unknown extractor kind {self.kind!r} (artifact from a newer repo version?)"
         )
+
+    def to_meta(self) -> dict:
+        return {
+            "kind": self.kind,
+            "rep_dim": self.rep_dim,
+            "hidden": list(self.hidden),
+            "widths": list(self.widths),
+            "blocks_per_stage": self.blocks_per_stage,
+        }
 
     @staticmethod
     def from_meta(meta: dict) -> "ExtractorSpec":
@@ -211,8 +228,41 @@ def from_state(
     )
 
 
+def _param_tree(art: TrainedVFLModel) -> dict:
+    """The artifact's checkpoint pytree in the reference's keys and layouts,
+    float32 numpy leaves."""
+    tree: Dict[str, Any] = {
+        "clients": [
+            {"extractor": to_jax_params(e), "head": to_jax_params(h)}
+            for e, h in zip(art.extractors, art.heads)
+        ],
+        "server": to_jax_params(art.classifier),
+    }
+    if art.overlap_reps is not None:
+        tree["overlap_reps"] = [h.detach().to("cpu", torch.float32).numpy() for h in art.overlap_reps]
+    return tree
+
+
+def save_artifact(directory: str, art: TrainedVFLModel) -> str:
+    """Persist one artifact per directory (atomic, via ``save_checkpoint``):
+    the parameters as the pytree, the declarative fields as metadata with
+    the reference's keys. Returns the checkpoint's path."""
+    meta = {
+        "artifact_version": art.version,
+        "scenario": art.scenario,
+        "num_classes": art.num_classes,
+        "feature_shapes": [list(s) for s in art.feature_shapes],
+        "extractor_specs": [s.to_meta() for s in art.extractor_specs],
+        "protocol": dict(art.protocol),
+        "metric_name": art.metric_name,
+        "metric": float(art.metric),
+        "n_overlap": (int(art.overlap_reps[0].shape[0]) if art.overlap_reps is not None else None),
+    }
+    return save_checkpoint(directory, _ARTIFACT_STEP, _param_tree(art), meta)
+
+
 def load_artifact(directory: str, device: DeviceLike = None) -> TrainedVFLModel:
-    """Load an artifact written by the reference's ``save_artifact``:
+    """Load an artifact written by either package's ``save_artifact``:
     metadata → rebuild the modules from the specs → read the parameter
     pytree in the reference's leaf order → copy it in. Runs on ``cuda``
     unless ``device="cpu"``."""
@@ -227,28 +277,8 @@ def load_artifact(directory: str, device: DeviceLike = None) -> TrainedVFLModel:
     specs = tuple(ExtractorSpec.from_meta(m) for m in meta["extractor_specs"])
     shapes = tuple(tuple(s) for s in meta["feature_shapes"])
     extractors, heads, classifier = _modules(specs, shapes, meta["num_classes"])
-    template: Dict[str, Any] = {
-        "clients": [
-            {"extractor": to_jax_params(e), "head": to_jax_params(h)}
-            for e, h in zip(extractors, heads)
-        ],
-        "server": to_jax_params(classifier),
-    }
     n_overlap = meta.get("n_overlap")
-    if n_overlap is not None:
-        template["overlap_reps"] = [torch.empty(n_overlap, s.rep_dim) for s in specs]
-    tree, _ = load_checkpoint(directory, template, step=_ARTIFACT_STEP)
-    for module, params in zip(extractors, (c["extractor"] for c in tree["clients"])):
-        load_jax_params(module, params)
-    for module, params in zip(heads, (c["head"] for c in tree["clients"])):
-        load_jax_params(module, params)
-    load_jax_params(classifier, tree["server"])
-    for m in (*extractors, *heads, classifier):
-        m.to(dev).eval()
-    overlap = None
-    if "overlap_reps" in tree:
-        overlap = [h.to(dev, torch.float32) for h in tree["overlap_reps"]]
-    return TrainedVFLModel(
+    art = TrainedVFLModel(
         scenario=meta["scenario"],
         num_classes=meta["num_classes"],
         feature_shapes=shapes,
@@ -257,8 +287,19 @@ def load_artifact(directory: str, device: DeviceLike = None) -> TrainedVFLModel:
         heads=heads,
         classifier=classifier,
         protocol=dict(meta.get("protocol", {})),
-        overlap_reps=overlap,
+        overlap_reps=None if n_overlap is None else [torch.empty(n_overlap, s.rep_dim) for s in specs],
         metric_name=meta.get("metric_name", ""),
         metric=float(meta.get("metric", 0.0)),
         version=version,
     )
+    tree, _ = load_checkpoint(directory, _param_tree(art), step=_ARTIFACT_STEP)
+    for module, params in zip(extractors, (c["extractor"] for c in tree["clients"])):
+        load_jax_params(module, params)
+    for module, params in zip(heads, (c["head"] for c in tree["clients"])):
+        load_jax_params(module, params)
+    load_jax_params(classifier, tree["server"])
+    for m in (*extractors, *heads, classifier):
+        m.to(dev).eval()
+    if "overlap_reps" in tree:
+        art.overlap_reps = [h.to(dev, torch.float32) for h in tree["overlap_reps"]]
+    return art

@@ -1,21 +1,26 @@
-"""Reader of the reference's ``ckpt_<step>.npz`` checkpoints (numpy only).
+"""The reference's ``ckpt_<step>.npz`` checkpoints, written and read with
+numpy only.
 
-Counterpart of the loading half of ``repro.checkpoint.ckpt``. A checkpoint
-holds the leaves of a pytree as ``leaf_0 … leaf_{n-1}`` in the order
+Counterpart of ``repro.checkpoint.ckpt``. A checkpoint holds the leaves of
+a pytree as ``leaf_0 … leaf_{n-1}`` in the order
 ``jax.tree_util.tree_flatten`` visits them, plus a JSON ``__meta__`` entry.
 That order is: dict keys in ``sorted()`` order at every level, list and
-tuple items in order. The reader walks a template tree (nested dicts and
-lists whose leaves carry the expected shape) in that same order and returns
-the tree with torch tensors at the leaves.
+tuple items in order. The writer walks the tree in that order; the reader
+walks a template tree (nested dicts and lists whose leaves carry the
+expected shape) in that same order and returns the tree with torch tensors
+at the leaves, so either package reads what the other wrote.
 
 ``np.savez`` stores ``bfloat16`` leaves (``ml_dtypes``) as raw 2-byte void
-records; they come back as ``torch.bfloat16`` by reinterpreting the bits.
+records. The writer stores a ``torch.bfloat16`` leaf the same way, and the
+reader turns such a record back into ``torch.bfloat16`` by reinterpreting
+the bits.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import tempfile
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -44,6 +49,39 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
             raise ValueError(f"unsupported raw leaf dtype {arr.dtype}")
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
+
+
+def _to_numpy(leaf: Any) -> np.ndarray:
+    if not torch.is_tensor(leaf):
+        return np.asarray(leaf)
+    t = leaf.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        # the 2-byte void record np.savez writes for an ml_dtypes bfloat16 array
+        return t.view(torch.int16).numpy().view(np.uint16).view("V2")
+    return t.numpy()
+
+
+def save_checkpoint(directory: str, step: int, tree: Any, metadata: Optional[dict] = None) -> str:
+    """Write ``tree``'s leaves and ``metadata`` (plus ``step``) to
+    ``<directory>/ckpt_<step:08d>.npz``; returns the path. The file appears
+    whole or not at all: it is written to a temporary file in the same
+    directory and renamed over the target, and the temporary file is removed
+    if the write fails."""
+    os.makedirs(directory, exist_ok=True)
+    flat = {f"leaf_{i}": _to_numpy(leaf) for i, leaf in enumerate(_leaves(tree))}
+    meta = dict(metadata or {})
+    meta["step"] = int(step)
+    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    os.close(fd)
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8), **flat)
+        os.replace(tmp, path)  # atomic on POSIX
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
 
 
 def latest_step(directory: str) -> Optional[int]:

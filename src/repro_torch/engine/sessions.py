@@ -17,7 +17,13 @@ build the same module. :func:`module_spec` reads the spec back off a built
 module, so a task that carries only its modules still has a key.
 
 Hits and misses are counted per domain, the first element of every key:
-``"ssl"``, ``"server_fit"``, ``"kmeans"``, ``"sdpa"``, ``"fewshot_gate"``.
+``"ssl"``, ``"server_fit"``, ``"kmeans"``, ``"sdpa"``, ``"fewshot_gate"``,
+``"iterative"`` (``engine.iterative.session_cache_key``) and ``"serving"``
+(``launch.vfl_serve``'s fused forwards, keyed by whether the parties can
+stack, each party's ``module_spec`` and the head's, which carries the
+classes: never a capacity, a batch width or a feature width, so every
+capacity and every engine over artifacts of the same specs share one built
+session).
 """
 
 from __future__ import annotations

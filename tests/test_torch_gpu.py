@@ -19,7 +19,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from repro_torch import scenarios  # noqa: E402
-from repro_torch.checkpoint import ExtractorSpec, init_artifact  # noqa: E402
+from repro_torch.checkpoint import (  # noqa: E402
+    ExtractorSpec,
+    init_artifact,
+    load_artifact,
+    save_artifact,
+)
 from repro_torch.core import baselines, clustering, estimator  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
     ProtocolConfig,
@@ -33,7 +38,8 @@ from repro_torch.kernels.kmeans import ref as kref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
-from repro_torch.launch.vfl_serve import ServingEngine  # noqa: E402
+from repro_torch.launch import batching, vfl_serve  # noqa: E402
+from repro_torch.launch.vfl_serve import KernelRouter, ServingEngine  # noqa: E402
 
 # The kernel and the plain version both sum in f32, in different orders: a
 # few ulps on O(1) outputs. Held against a float64 plain version, 2e-5 is the
@@ -942,3 +948,78 @@ def test_folded_few_shot_finetune_on_the_card(cuda):
         assert [e.__dict__ for e in g.ledger.events] == [e.__dict__ for e in w.ledger.events]
         assert g.ledger.comm_times() == 5 + 2 * 200
         assert 0.0 <= g.diagnostics["fewshot_metric"] <= 1.0 and 0.0 <= g.metric <= 1.0
+
+
+# ------------------------------------------------------------- deployment
+def _deploy_artifacts(device):
+    """A K = 8 MLP artifact (composed at every capacity) and a K = 4 CNN one
+    (stacked up to 64 rows a step, composed above), seeded, overlap reps
+    included."""
+    gen = torch.Generator().manual_seed(3)
+    mlp = ExtractorSpec("mlp", 8, hidden=(32,))
+    cnn = ExtractorSpec("cnn", 16, widths=(8, 16), blocks_per_stage=2)
+    out = []
+    for spec, shapes in ((mlp, [(5,)] * 8), (cnn, [(8, 4, 3)] * 4)):
+        aligned = [torch.randn(48, *s, generator=gen) for s in shapes]
+        out.append(init_artifact([spec] * len(shapes), shapes, 3, seed=1, device="cpu", aligned=aligned))
+    return out
+
+
+def test_save_and_load_on_the_card(cuda, tmp_path):
+    """An artifact on the card saved and loaded back on the card: the same
+    logits bit for bit; loaded on the CPU, the same weights."""
+    for i, art_cpu in enumerate(_deploy_artifacts(cuda)):
+        save_artifact(str(tmp_path / f"c{i}"), art_cpu)
+        art = load_artifact(str(tmp_path / f"c{i}"), device=cuda)
+        save_artifact(str(tmp_path / f"g{i}"), art)
+        again = load_artifact(str(tmp_path / f"g{i}"), device=cuda)
+        xs = [torch.randn(37, *s, device=cuda) for s in art.feature_shapes]
+        assert torch.equal(again.predict_logits(xs), art.predict_logits(xs))
+        for a, b, c in zip(again.overlap_reps, art.overlap_reps, art_cpu.overlap_reps):
+            assert a.is_cuda and torch.equal(a, b) and torch.equal(a.cpu(), c)
+        back = load_artifact(str(tmp_path / f"g{i}"), device="cpu")
+        for m, n in zip(back.classifier.parameters(), art_cpu.classifier.parameters()):
+            assert torch.equal(m, n)
+
+
+def test_fused_engine_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Both fused paths on the card against the CPU's engine on the same
+    weights and rows (TF32 off): within 1e-4 of the logits' scale, and the
+    two paths within 2e-5 of it."""
+    for i, art_cpu in enumerate(_deploy_artifacts(cuda)):
+        save_artifact(str(tmp_path / str(i)), art_cpu)
+        art = load_artifact(str(tmp_path / str(i)), device=cuda)
+        xs = [torch.randn(150, *s) for s in art.feature_shapes]
+        want = ServingEngine(art_cpu, capacity=8, device="cpu").predict_logits(xs)
+        scale = max(1.0, want.abs().max().item())
+        for capacity in (8, 128):
+            engine = ServingEngine(art, capacity=capacity, device=cuda)
+            assert engine.path == ("stacked" if i == 1 and capacity == 8 else "composed")
+            got = engine.predict_logits([x.to(cuda) for x in xs]).cpu()
+            torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=0)
+        batch = batching.pad_to_capacity([x[:8].to(cuda) for x in xs], 8)
+        with torch.inference_mode():
+            outs = [
+                vfl_serve._build_fused_forward(art, p)(
+                    vfl_serve._party_params(art, p), art.classifier, batch.xs, batch.mask
+                ).cpu()
+                for p in vfl_serve.PATHS
+            ]
+        torch.testing.assert_close(outs[0], outs[1], atol=2e-5 * scale, rtol=0)
+
+
+def test_router_card_rule(cuda):
+    """On the card the router's rule is the kernel, and a partial-party
+    query launches the ``sdpa_estimator`` kernel once (its K−1 = 7 Eq. 10
+    estimates fused)."""
+    assert KernelRouter.default() == KernelRouter("cuda") and KernelRouter("cuda").kernels_viable
+    art = _deploy_artifacts(cuda)[0]
+    art = init_artifact(art.extractor_specs, art.feature_shapes, 3, seed=1, device=cuda,
+                        aligned=[torch.randn(48, 5, device=cuda) for _ in range(8)])
+    assert KernelRouter.default().use_sdpa(20, 48, 8, batch=art.num_parties - 1)
+    engine = ServingEngine(art, capacity=16, device=cuda)
+    x = torch.randn(20, 5, device=cuda)
+    before = ops.LAUNCHES
+    got = engine.predict_logits_partial(x, 1)
+    assert ops.LAUNCHES == before + 1
+    assert got.shape == (20, 3) and bool(torch.isfinite(got).all())
