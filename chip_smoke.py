@@ -124,7 +124,8 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    batched vs unbatched logits within LOGIT_RTOL;
 12. zoo, small: reduced phi4-mini (2 layers, G = 2, f32 activations) served
    on the card and on the CPU's plain route with the same weights: equal
-   greedy tokens, logits within 1e-4;
+   greedy tokens, logits within 1e-4, 5 RMSNorm and 2 decode-attention
+   launches a step;
 13. zoo, full width (the third path): ``phi4-mini-3.8b`` at its own config
    (3,836,021,760 f32 parameters, seeded on the card). ``launch/serve``'s
    prefill + greedy decode at batch 4, prompt 32, 16 new tokens, once to
@@ -133,11 +134,30 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    difference <= 1e-4); one ``make_zoo_extractor`` forward. Each part's
    RMSNorm and decode-attention launches are checked exactly: 2L + 1 = 65
    and L = 32 per decode step, 65 and 0 per ``prefill_fn`` or extractor
-   forward.
+   forward;
+14. zoo families, small: the reduced ``granite-moe-3b-a800m`` (MoE),
+   ``mamba2-370m`` (SSM) and ``zamba2-1.2b`` (hybrid) in f32 activations
+   served on the card and on the CPU's plain route with the same weights:
+   every decode step's logits within 1e-4, equal greedy tokens, exact
+   launches a step (the MoE run's smallest top-k gate margin printed);
+15. zoo families, full width (the fourth path), one config at a time, the
+   card freed between them: the exact parameter count, ``launch/serve``'s
+   prefill + greedy decode at batch 4, prompt 32, 16 new tokens, warm-up
+   and timed (p50/p99 per token step, tokens/s, peak memory), and prefill
+   ≡ sequential decode in f32 activations with the f32-cast cache (granite
+   at capacity factor 8, drop-free at prefill) within 1e-4. Launches a
+   decode step, checked exactly: granite 65 RMSNorm and 32 decode
+   attention, mamba2 97 and 0, zamba2 89 and 6; a ``prefill_fn`` the same
+   RMSNorm count and no decode attention.
+
+The RMSNorm and decode-attention ``[kernel]`` rows include the families'
+shapes (d 1536, 1024 and 2048 in bf16, the gated norm's 2048 and 4096 in
+f32; dh 64 at G = 3 and G = 1), and every row is also held against a
+float64 plain version.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
-5-6, then 7-8, then 9, then 9a, then 9b, then 9c, then 10-11a, then 13) and read just
-after. Output ends
+5-6, then 7-8, then 9, then 9a, then 9b, then 9c, then 10-11a, then 13,
+then 15) and read just after. Output ends
 with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -194,6 +214,7 @@ from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
 from repro_torch.launch.vfl_serve import ServingEngine, serve_traffic, serving_path  # noqa: E402
+from repro_torch.models import moe as zoo_moe  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.zoo_extractor import make_zoo_extractor  # noqa: E402
 
@@ -469,6 +490,13 @@ RMS_SHAPES = [
     (2048, 4096, torch.bfloat16),
     (2048, 4096, torch.float32),
     (231, 130, torch.float32),
+    # the zoo families' decode steps: granite's d, mamba2's d, zamba2's d
+    # (bf16 residual stream), and the Mamba2 gated norm at d_inner in f32
+    (4, 1536, torch.bfloat16),
+    (4, 1024, torch.bfloat16),
+    (4, 2048, torch.bfloat16),
+    (4, 2048, torch.float32),
+    (4, 4096, torch.float32),
 ]
 # Decode attention vs plain version: f32 outputs, softmax-weighted means of
 # bf16 cache rows computed in f32 on both sides; a few ulps. 2e-5 is the
@@ -491,6 +519,10 @@ DECODE_SHAPES = [
     (2, 4, 1, 77, 80, None),
     (8, 24, 8, 32768, 128, "lengths"),
     (4, 128, 8, 4096, 128, None),
+    # the zoo families' decode steps at 48 slots, with the path's mask:
+    # granite (G = 3, dh 64) and zamba2's shared block (G = 1, dh 64)
+    (4, 24, 8, 48, 64, "positions"),
+    (4, 32, 32, 48, 64, "positions"),
 ]
 # key ranges wanted in the decode plan phase (ops.split_plan), at the long
 # context shape (unmasked and with ragged lengths) and at the G = 16 shape
@@ -498,8 +530,34 @@ DECODE_PLAN_RANGES = (1, 4, 8, 16, 32, 64, 128)
 # the columns printed for the zoo kernels
 ZOO_TIMES = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms")
 ZOO_ARCH = "phi4-mini-3.8b"
+ZOO_FAMILIES = ("granite-moe-3b-a800m", "mamba2-370m", "zamba2-1.2b")
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 32, 16
-ZOO_PARAMS = 3_836_021_760  # 32 x 100,669,440 per layer + 614,596,608 embedding + 3,072
+# Exact parameter counts at full width (the reference's param_shapes(); phi4:
+# 32 x 100,669,440 per layer + 614,596,608 embedding + 3,072), and the
+# launches a decode step, (RMSNorm, decode attention): 2L + 1 norms (a dense
+# block's two, or a Mamba2 block's pre-norm and gated norm), plus the shared
+# block's two norms at each of zamba2's 6 applications. A prefill_fn launches
+# the same RMSNorm count and no decode attention.
+ZOO_PARAMS = {
+    ZOO_ARCH: 3_836_021_760,
+    "granite-moe-3b-a800m": 3_374_295_552,
+    "mamba2-370m": 419_825_152,
+    "zamba2-1.2b": 1_170_473_856,
+}
+ZOO_LAUNCHES = {
+    ZOO_ARCH: (2 * 32 + 1, 32),
+    "granite-moe-3b-a800m": (2 * 32 + 1, 32),
+    "mamba2-370m": (2 * 48 + 1, 0),
+    "zamba2-1.2b": (2 * 38 + 2 * 6 + 1, 6),
+}
+# The reduced configs' launches a step: 2 layers, or zamba2's one group of 2
+# blocks and one shared-block application.
+ZOO_SMALL_LAUNCHES = {
+    ZOO_ARCH: (5, 2),
+    "granite-moe-3b-a800m": (5, 2),
+    "mamba2-370m": (5, 0),
+    "zamba2-1.2b": (7, 1),
+}
 # prefill ≡ sequential decode at full width in f32 activations, TF32 off: the
 # blocked-scan prefill and the decode kernel sum in different orders; logits
 # relative to their scale (the reference's own test holds 2e-5 at 2 layers).
@@ -915,6 +973,12 @@ def phase_rmsnorm(gen) -> dict:
         atol, rtol = RMS_TOL[dtype]
         ok = bool((diff <= atol + rtol * want.float().abs()).all())
         check(ok, f"rmsnorm {rows, d, dtype}: max|err| {err} past {atol} + {rtol}·|want|")
+        xd = x.double()
+        want64 = xd * torch.rsqrt(xd.square().mean(-1, keepdim=True) + 1e-6) * scale.double()
+        diff64 = (got.double() - want64).abs()
+        err64 = diff64.max().item()
+        ok64 = bool((diff64 <= atol + rtol * want64.abs()).all())
+        check(ok64, f"rmsnorm {rows, d, dtype}: max|err| vs f64 {err64} past {atol} + {rtol}·|want|")
         lib_scale = scale.to(dtype)
         row = {
             "shape": [rows, d, str(dtype).split(".")[-1]],
@@ -933,7 +997,8 @@ def phase_rmsnorm(gen) -> dict:
         times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
         print(
             f"[kernel] rmsnorm rows={rows} d={d} {row['shape'][2]} (scale f32): max|err| "
-            f"{err:.3e} | {times} | bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            f"{err:.3e} (vs f64 {err64:.3e}) | {times} | bound {row['bound_ms']:.3e} ms "
+            f"({row['bound_by']})"
         )
     return rows_out[0]  # the decode step's norm: 65 launches a step
 
@@ -981,6 +1046,9 @@ def phase_decode_attention(gen) -> dict:
         err = (got - want).abs().max().item()
         check(bool(torch.isfinite(got).all()), f"non-finite decode attention at {(b, h, s)}")
         check(err <= DECODE_TOL, f"decode attention max|err| {err} > {DECODE_TOL} at {(b, h, s)}")
+        err64 = (got.double() - decode_oracle64(q, kc, vc, lengths, key_pos, q_pos)).abs().max()
+        err64 = err64.item()
+        check(err64 <= DECODE_TOL, f"decode attention error vs f64 {err64} at {(b, h, s, dh)}")
         q4 = q.bfloat16()[:, :, None, :]
         mask = None if mode is None else valid[:, None, None, :]
 
@@ -1010,8 +1078,9 @@ def phase_decode_attention(gen) -> dict:
         what = {None: "", "lengths": " ragged lengths", "positions": " non-prefix positions"}
         print(
             f"[kernel] decode_attention B={b} H={h} Hkv={hkv} S={s} dh={dh} bf16 cache"
-            f"{what[mode]}: {_plan_text(plan)} | max|err| {err:.3e} | {times} | "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            f"{what[mode]}: {_plan_text(plan)} | max|err| {err:.3e} (vs f64 {err64:.3e}) | "
+            f"{times} | "
+            f"bound {row['bound_ms']:.3e} ms ({row['bound_by']})"
         )
     return rows_out[2]  # the decode step's launch (32 a step) with the path's mask
 
@@ -2242,25 +2311,59 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def _f32_cache(cache: dict) -> dict:
-    """A decode cache with float32 k/v, for the f32 activation policy."""
-    blocks = cache["blocks"]
-    return {"blocks": {k: t.float() if t.is_floating_point() else t for k, t in blocks.items()}}
+    """A decode cache with float32 k/v (and every other float leaf), for the
+    f32 activation policy."""
+    return {
+        k: _f32_cache(t) if isinstance(t, dict) else (t.float() if t.is_floating_point() else t)
+        for k, t in cache.items()
+    }
 
 
-def phase_zoo_small() -> None:
-    """Reduced phi4-mini (G = 2, f32 activations) on the card and on the
-    CPU's plain route, with the same weights and prompt. The logits of every
-    decode step are compared: greedy tokens of random weights repeat, so
-    their equality alone says little."""
-    cfg = dataclasses.replace(
-        get_config(ZOO_ARCH).reduced(), num_kv_heads=2, activation_dtype="float32"
-    )
+def _zoo_cfg(name: str, reduced: bool, **moe_changes):
+    """The config in f32 activations; reduced phi4 with two kv heads (G = 2:
+    ``reduced()`` alone gives kv heads = heads)."""
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg, activation_dtype="float32")
+    if reduced and name == ZOO_ARCH:
+        cfg = dataclasses.replace(cfg, num_kv_heads=2)
+    if moe_changes and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe_changes))
+    return cfg
+
+
+def _min_topk_margin(fn):
+    """Run ``fn()`` with ``moe.route`` wrapped: returns fn's result and the
+    smallest gap between a token's k-th and (k+1)-th router probability
+    over every routing of the run (how near a top-k tie came)."""
+    plain, margins = zoo_moe.route, []
+
+    def recorded(params, xf, cfg, cap):
+        out = plain(params, xf, cfg, cap)
+        top = torch.topk(out[0], cfg.moe.top_k + 1, dim=-1).values
+        margins.append((top[:, -2] - top[:, -1]).min().item())
+        return out
+
+    zoo_moe.route = recorded
+    try:
+        return fn(), min(margins)
+    finally:
+        zoo_moe.route = plain
+
+
+def phase_zoo_small(name: str, tag: str) -> None:
+    """A reduced config (f32 activations) served on the card and on the
+    CPU's plain route with the same weights and prompt. The logits of every
+    decode step are compared (greedy tokens of random weights repeat, so
+    their equality alone says little), and the card's launches a step
+    checked exactly. A MoE run prints its smallest top-k gate margin."""
+    cfg = _zoo_cfg(name, reduced=True)
+    want_rms, want_dec = ZOO_SMALL_LAUNCHES[name]
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
     prompt = torch.randint(
         0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(SEED), dtype=torch.int32
     )
-    outs = {}
+    outs, margins = {}, {}
     for dev, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
         steps = []
 
@@ -2269,39 +2372,62 @@ def phase_zoo_small() -> None:
             steps.append(logits_.cpu())
             return logits_, cache_
 
-        cache = _f32_cache(zeros_like_spec(model.cache_shapes(2, 16), dev))
-        logits, cache = serve.prefill(decode, p, cache, prompt.to(dev))
-        toks, _ = serve.greedy_decode(decode, p, cache, logits, 8, 8)
-        outs[dev] = (torch.stack(steps), toks.cpu())
-    check(outs["cuda"][0].shape[0] == 16, "reduced zoo: 16 decode steps")
-    rel = max(_rel(c, g) for c, g in zip(outs["cuda"][0], outs["cpu"][0]))
-    check(rel <= ZOO_RTOL, f"reduced zoo card vs CPU logits differ by {rel} (relative)")
-    check(torch.equal(outs["cuda"][1], outs["cpu"][1]), "reduced zoo greedy tokens differ")
-    print(
-        f"[zoo] reduced {ZOO_ARCH} (2 layers, d 256, G 2, f32): card vs CPU plain route "
-        f"logits of all 16 decode steps max rel diff {rel:.2e}, greedy tokens equal "
-        f"{outs['cuda'][1][0].tolist()}"
-    )
+        def run():
+            cache = _f32_cache(zeros_like_spec(model.cache_shapes(2, 16), dev))
+            logits, cache = serve.prefill(decode, p, cache, prompt.to(dev))
+            return serve.greedy_decode(decode, p, cache, logits, 8, 8)[0]
 
-
-def phase_zoo(line: str) -> dict:
-    """phi4-mini-3.8b at full width through ``launch/serve``; returns the
-    path's launch counts. Every part's launches are checked exactly."""
-    cfg = get_config(ZOO_ARCH)
-    n_layers = cfg.num_layers
-    per_step = (2 * n_layers + 1, n_layers)  # rmsnorm, decode_attention per decode step
-    totals = {"rmsnorm": 0, "decode_attention": 0}
-
-    def counted(want_rms: int, want_dec: int, what: str) -> None:
-        """Check one part's launches exactly, add them to the path's, and
-        count the next part from 0."""
         torch.cuda.synchronize()
-        got = (rops.LAUNCHES, dops.LAUNCHES)
-        check(got == (want_rms, want_dec), f"{what}: launches {got}, not {want_rms, want_dec}")
-        totals["rmsnorm"] += got[0]
-        totals["decode_attention"] += got[1]
         rops.LAUNCHES = dops.LAUNCHES = 0
+        if cfg.moe is not None:
+            toks, margins[dev] = _min_topk_margin(run)
+        else:
+            toks = run()
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            got = (rops.LAUNCHES, dops.LAUNCHES)
+            check(got == (16 * want_rms, 16 * want_dec), f"reduced {name}: launches {got}")
+        outs[dev] = (torch.stack(steps), toks.cpu())
+    rops.LAUNCHES = dops.LAUNCHES = 0
+    check(outs["cuda"][0].shape[0] == 16, f"reduced {name}: 16 decode steps")
+    rel = max(_rel(c, g) for c, g in zip(outs["cuda"][0], outs["cpu"][0]))
+    margin = ""
+    if margins:
+        margin = f"; smallest top-k gate margin card {margins['cuda']:.3e}, CPU {margins['cpu']:.3e}"
+    check(rel <= ZOO_RTOL, f"reduced {name} card vs CPU logits differ by {rel}{margin}")
+    check(torch.equal(outs["cuda"][1], outs["cpu"][1]), f"reduced {name} greedy tokens differ{margin}")
+    print(
+        f"[{tag}] reduced {name} ({cfg.family}, {cfg.num_layers} layers, d {cfg.d_model}"
+        f"{f', G {cfg.num_heads // cfg.num_kv_heads}' if cfg.num_heads else ''}, f32): card vs CPU "
+        f"plain route logits of all "
+        f"16 decode steps max rel diff {rel:.2e}, greedy tokens equal {outs['cuda'][1][0].tolist()}, "
+        f"launches a step {want_rms} rmsnorm / {want_dec} decode_attention{margin}"
+    )
+    del params, model
+    torch.cuda.empty_cache()
 
+
+def _counted(totals: dict, want_rms: int, want_dec: int, what: str) -> None:
+    """Check one part's launches exactly, add them to the path's, and count
+    the next part from 0."""
+    torch.cuda.synchronize()
+    got = (rops.LAUNCHES, dops.LAUNCHES)
+    check(got == (want_rms, want_dec), f"{what}: launches {got}, not {want_rms, want_dec}")
+    totals["rmsnorm"] += got[0]
+    totals["decode_attention"] += got[1]
+    rops.LAUNCHES = dops.LAUNCHES = 0
+
+
+def phase_zoo_serve(name: str, line: str, tag: str, totals: dict):
+    """A config at full width through ``launch/serve``: the exact parameter
+    count; prefill + greedy decode at batch 4, prompt 32, 16 new tokens,
+    warm-up and timed (p50/p99 per token step, tokens/s, peak memory);
+    prefill ≡ sequential decode in f32 activations with the f32-cast cache
+    (a MoE at capacity factor 8, drop-free at prefill) within ZOO_RTOL. Every
+    part's launches are checked exactly and added to ``totals``. Returns the
+    config and the card's generator."""
+    cfg = get_config(name)
+    per_step = ZOO_LAUNCHES[name]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2310,12 +2436,15 @@ def phase_zoo(line: str) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    check(n_params == ZOO_PARAMS, f"{ZOO_ARCH}: {n_params} parameters, not {ZOO_PARAMS}")
+    check(n_params == ZOO_PARAMS[name], f"{name}: {n_params} parameters, not {ZOO_PARAMS[name]}")
     gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    attn = "attention-free" if not cfg.num_heads else (
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}"
+    )
     print(
-        f"[zoo] {ZOO_ARCH}: {n_params} parameters ({gb:.2f} GB f32), {n_layers} layers, d "
-        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied; seeded on the card in {init_s:.2f} s"
+        f"[{tag}] {name} ({cfg.family}): {n_params} parameters ({gb:.2f} GB f32), "
+        f"{cfg.num_layers} layers, d {cfg.d_model}, {attn}, vocab {cfg.vocab_size}"
+        f"{', tied' if cfg.tie_embeddings else ''}; seeded on the card in {init_s:.2f} s"
     )
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     prompt = torch.randint(
@@ -2330,50 +2459,61 @@ def phase_zoo(line: str) -> dict:
         logits, cache = serve.prefill(decode, params, cache, prompt, rec)
         first = logits
         out, cache = serve.greedy_decode(decode, params, cache, logits, ZOO_PROMPT, ZOO_GEN, rec)
-        counted(steps * per_step[0], steps * per_step[1], "serve (per decode step 65 and 32)")
+        _counted(totals, steps * per_step[0], steps * per_step[1], f"{name} serve ({per_step} a step)")
         results.append((first, out, rec))
     first, out, rec = results[1]
-    check(out.shape == (ZOO_BATCH, ZOO_GEN), f"generated {tuple(out.shape)}")
-    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "generated tokens out of range")
-    check(torch.equal(out, results[0][1]), "the timed run's tokens differ from the warm-up's")
+    check(out.shape == (ZOO_BATCH, ZOO_GEN), f"{name}: generated {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"{name}: tokens out of range")
+    check(bool(torch.isfinite(first).all()), f"{name}: non-finite logits")
+    check(torch.equal(out, results[0][1]), f"{name}: the timed run's tokens differ from the warm-up's")
     s = rec.summary()
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(
-        f"[zoo] serve batch {ZOO_BATCH}, prompt {ZOO_PROMPT}, {ZOO_GEN} new tokens ({s['batches']} "
-        f"decode steps, bf16 activations, f32 weights): per-token step p50 {s['p50_ms']:.3f} ms "
-        f"p99 {s['p99_ms']:.3f} ms mean {s['mean_ms']:.3f} ms, {s['rows_per_s']:.1f} tokens/s | "
-        f"peak memory {peak:.2f} GB | sequence 0: {out[0].tolist()} | {line}"
+        f"[{tag}] {name} serve batch {ZOO_BATCH}, prompt {ZOO_PROMPT}, {ZOO_GEN} new tokens "
+        f"({s['batches']} decode steps, bf16 activations, f32 weights): per-token step p50 "
+        f"{s['p50_ms']:.3f} ms p99 {s['p99_ms']:.3f} ms mean {s['mean_ms']:.3f} ms, "
+        f"{s['rows_per_s']:.1f} tokens/s | peak memory {peak:.2f} GB | launches a step "
+        f"{per_step[0]} rmsnorm / {per_step[1]} decode_attention | sequence 0: {out[0].tolist()} "
+        f"| {line}"
     )
-    print(json.dumps({"zoo_serve": s, "peak_memory_gb": peak}))
+    print(json.dumps({"zoo_serve": name, "summary": s, "peak_memory_gb": peak}))
 
-    # prefill ≡ sequential decode, bf16 (reported) and f32 (held to ZOO_RTOL)
+    # prefill ≡ sequential decode, bf16 (reported) and f32 with the f32 cache
+    # (held to ZOO_RTOL)
     pre_bf16 = model.prefill_fn(params, {"tokens": prompt})
-    counted(per_step[0], 0, "prefill_fn (65 and 0)")
+    _counted(totals, per_step[0], 0, f"{name} prefill_fn")
     rel_bf16 = _rel(pre_bf16, first)
-    model32 = build_model(dataclasses.replace(cfg, activation_dtype="float32"))
+    model32 = build_model(_zoo_cfg(name, reduced=False, capacity_factor=8.0))
     pre32 = model32.prefill_fn(params, {"tokens": prompt})
-    counted(per_step[0], 0, "f32 prefill_fn (65 and 0)")
+    _counted(totals, per_step[0], 0, f"{name} f32 prefill_fn")
     cache = _f32_cache(zeros_like_spec(model32.cache_shapes(ZOO_BATCH, ZOO_PROMPT), "cuda"))
     dec32, _ = serve.prefill(model32.decode_fn, params, cache, prompt)
-    counted(ZOO_PROMPT * per_step[0], ZOO_PROMPT * per_step[1], "f32 sequential decode")
-    check(pre32.dtype == dec32.dtype == torch.float32, "f32 logits")
-    check(bool(torch.isfinite(pre32).all() and torch.isfinite(dec32).all()), "non-finite logits")
+    _counted(totals, ZOO_PROMPT * per_step[0], ZOO_PROMPT * per_step[1], f"{name} f32 decode")
+    check(pre32.dtype == dec32.dtype == torch.float32, f"{name}: f32 logits")
+    check(bool(torch.isfinite(pre32).all() and torch.isfinite(dec32).all()), f"{name}: non-finite")
     rel32 = _rel(dec32, pre32)
-    check(rel32 <= ZOO_RTOL, f"f32 prefill vs sequential decode differ by {rel32} (relative)")
+    check(rel32 <= ZOO_RTOL, f"{name}: f32 prefill vs sequential decode differ by {rel32}")
     print(
-        f"[zoo] prefill_fn ≡ sequential decode over the {ZOO_PROMPT}-token prompt: f32 "
-        f"activations max rel logit diff {rel32:.3e} (limit {ZOO_RTOL:g}, TF32 off); bf16 "
-        f"activations {rel_bf16:.3e}"
+        f"[{tag}] {name} prefill_fn ≡ sequential decode over the {ZOO_PROMPT}-token prompt: f32 "
+        f"activations, f32 cache{', capacity factor 8' if cfg.moe else ''}: max rel logit diff "
+        f"{rel32:.3e} (limit {ZOO_RTOL:g}, TF32 off); bf16 activations {rel_bf16:.3e}"
     )
     del params, model, model32, cache
     torch.cuda.empty_cache()
+    return cfg, gen
 
+
+def phase_zoo(line: str) -> dict:
+    """phi4-mini-3.8b at full width through ``launch/serve``, then one
+    ``make_zoo_extractor`` forward; returns the path's launch counts."""
+    totals = {"rmsnorm": 0, "decode_attention": 0}
+    cfg, gen = phase_zoo_serve(ZOO_ARCH, line, "zoo", totals)
     ext = make_zoo_extractor(cfg, rep_dim=128, device="cuda")
     ext.init_(torch.Generator(device="cuda").manual_seed(SEED + 2))
     rows = torch.randint(0, cfg.vocab_size, (8, 64), generator=gen, device="cuda")
     with torch.no_grad():
         reps = ext(rows)
-    counted(per_step[0], 0, "zoo extractor forward (65 and 0)")
+    _counted(totals, ZOO_LAUNCHES[ZOO_ARCH][0], 0, "zoo extractor forward (65 and 0)")
     check(reps.shape == (8, 128) and bool(torch.isfinite(reps).all()), "zoo extractor reps")
     print(
         f"[zoo] make_zoo_extractor({ZOO_ARCH}, rep_dim 128) forward on 8 rows of 64 tokens: "
@@ -2565,7 +2705,7 @@ def main() -> int:
     print(f"[path] serving: sdpa_estimator launches {launches} (expected {expected})")
 
     t0 = time.time()
-    phase_zoo_small()
+    phase_zoo_small(ZOO_ARCH, "zoo")
     zoo_small_s = time.time() - t0
     del art_b, art_a, patches
     torch.cuda.empty_cache()
@@ -2583,6 +2723,27 @@ def main() -> int:
         f"{zoo['decode_attention']} (each part exactly 65 / 32 per decode step, 65 / 0 per "
         f"prefill_fn and extractor forward) in {zoo_s:.1f} s"
     )
+
+    t0 = time.time()
+    for name in ZOO_FAMILIES:
+        phase_zoo_small(name, "zoo-families")
+    families_small_s = time.time() - t0
+
+    # ---- the zoo families at full width: counters from 0, read right after
+    torch.cuda.synchronize()
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    t0 = time.time()
+    fam = {"rmsnorm": 0, "decode_attention": 0}
+    for name in ZOO_FAMILIES:  # one at a time: each frees the card before the next
+        phase_zoo_serve(name, line, "zoo-families", fam)
+    torch.cuda.synchronize()
+    families_s = time.time() - t0
+    check(ops.LAUNCHES == kops.LAUNCHES == 0, "a VFL kernel launched on the zoo families' path")
+    print(
+        f"[path] zoo-families: rmsnorm launches {fam['rmsnorm']}, decode_attention launches "
+        f"{fam['decode_attention']} (each part exactly granite 65 / 32, mamba2 97 / 0, zamba2 "
+        f"89 / 6 a decode step, the same rmsnorm count and 0 a prefill_fn) in {families_s:.1f} s"
+    )
     print(
         f"[time] {time.time() - t_start:.1f} s from the build on; few-shot phases "
         f"{few_shot_s:.1f} s; baselines A {baselines_a_s:.1f} s, baselines B {baselines_b_s:.1f} "
@@ -2591,7 +2752,8 @@ def main() -> int:
         f"{fld['frontier_s']:.1f} s), catalog "
         f"{catalog_s:.1f} s; the zoo's "
         f"share: kernel phases "
-        f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s"
+        f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s, "
+        f"reduced families {families_small_s:.1f} s, full-width families {families_s:.1f} s"
     )
 
     def entry(name, source, replaces, count, row):
@@ -2622,14 +2784,14 @@ def main() -> int:
             "rmsnorm",
             "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             "src/repro/kernels/rmsnorm/kernel.py:21",
-            zoo["rmsnorm"],
+            zoo["rmsnorm"] + fam["rmsnorm"],
             rms_row,
         ),
         entry(
             "decode_attention",
             "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:25",
-            zoo["decode_attention"],
+            zoo["decode_attention"] + fam["decode_attention"],
             decode_row,
         ),
     ]

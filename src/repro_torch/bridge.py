@@ -14,11 +14,21 @@ OIHW, so dense weights are transposed and conv kernels permuted
 ``(3, 2, 0, 1)`` on the way in (and back on the way out).
 
 Model-zoo pytrees (``repro.models.model_zoo``) are keyed ``embed/tok`` (and
-``embed/unembed`` when untied), ``final_ln_scale`` and ``blocks/{ln1_scale,
-ln2_scale, attn/{w_q, w_k, w_v, w_o[, b_q, b_k, b_v]}, ffn/{w_gate, w_up,
-w_down}}`` with a leading L axis, plus ``rep_head`` for the zoo extractor.
+``embed/unembed`` when untied), ``final_ln_scale``, ``rep_head`` for the zoo
+extractor, and the family's blocks:
+
+* dense and moe: ``blocks/{ln1_scale, ln2_scale, attn/{w_q, w_k, w_v, w_o[,
+  b_q, b_k, b_v]}}`` with ``ffn/{w_gate, w_up, w_down}`` or ``moe/{router,
+  w_gate_e, w_up_e, w_down_e[, shared/*]}``, a leading L axis on each;
+* ssm: ``blocks/{ln_scale, mamba/{in_proj, conv_w, conv_bias, A_log, D,
+  dt_bias, gate_norm_scale, out_proj}}`` with a leading L axis;
+* hybrid: ``super/{ln_scale, mamba/*}`` with two leading axes (n_super,
+  every), ``rest/*`` with one, and ``shared_attn/*`` (a dense block) with
+  none.
+
 The port keeps the reference's ``(in, out)`` layout there, so those leaves
-copy as they are; the L axis becomes the index into ``blocks``.
+copy as they are; each stacked axis becomes an index into a
+``nn.ModuleList``, which stands in the parameter's name.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.extractors import CNNExtractor, Dense
-from repro_torch.models.model_zoo import DecoderLM
+from repro_torch.models.model_zoo import make_backbone
 from repro_torch.models.zoo_extractor import ZooExtractor
 
 Tree = Dict[str, Any]
@@ -136,17 +146,18 @@ def to_jax_params(module: nn.Module) -> Tree:
     raise TypeError(f"no reference layout for {type(module).__name__}")
 
 
-def _zoo_leaves(module: nn.Module) -> Iterator[Tuple[Tuple[str, ...], int, nn.Parameter]]:
-    """(reference path, block index or -1, parameter) for every parameter of
-    a :class:`DecoderLM` or :class:`ZooExtractor`."""
+def _zoo_leaves(
+    module: nn.Module,
+) -> Iterator[Tuple[Tuple[str, ...], Tuple[int, ...], nn.Parameter]]:
+    """(reference path, stacked indices, parameter) for every parameter of a
+    zoo backbone or :class:`ZooExtractor`: the name's list indices are the
+    indices into the reference's stacked axes, the rest is the path."""
     for name, p in module.named_parameters():
         parts = name.split(".")
         if parts[0] == "backbone":
             parts = parts[1:]
-        if parts[0] == "blocks":
-            yield ("blocks", *parts[2:]), int(parts[1]), p
-        else:
-            yield tuple(parts), -1, p
+        path = tuple(k for k in parts if not k.isdigit())
+        yield path, tuple(int(k) for k in parts if k.isdigit()), p
 
 
 def _flat(tree: Tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
@@ -161,43 +172,47 @@ def _flat(tree: Tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any
 
 def zoo_params_from_reference(tree: Tree, cfg: ArchConfig, device: DeviceLike = None):
     """A reference model-zoo pytree as the port's module: a
-    :class:`ZooExtractor` when the tree has ``rep_head``, else the
-    :class:`DecoderLM`, on ``device`` (``cuda`` unless the caller says
-    ``cpu``). Raises ``ValueError`` on a missing or extra key or a shape
-    that does not fit."""
+    :class:`ZooExtractor` when the tree has ``rep_head``, else the family's
+    backbone (``model_zoo.make_backbone``), on ``device`` (``cuda`` unless
+    the caller says ``cpu``). Raises ``ValueError`` on a missing or extra
+    key or a shape that does not fit."""
     leaves = _flat(tree)
     dev = resolve_device(device)
     if ("rep_head",) in leaves:
         module = ZooExtractor(cfg, int(np.shape(leaves[("rep_head",)])[-1]), dev)
     else:
-        module = DecoderLM(cfg, dev)
+        module = make_backbone(cfg, dev)
     expected = {path for path, _, _ in _zoo_leaves(module)}
     if set(leaves) != expected:
         missing = sorted("/".join(k) for k in expected - set(leaves))
         extra = sorted("/".join(k) for k in set(leaves) - expected)
         raise ValueError(f"zoo tree keys differ: missing {missing}, unexpected {extra}")
-    for path, layer, p in _zoo_leaves(module):
-        value = _tensor(leaves[path])
-        _set(p, value if layer < 0 else value[layer], "/".join(path))
+    for path, index, p in _zoo_leaves(module):
+        _set(p, _tensor(leaves[path])[index], "/".join(path))
     return module
 
 
 def zoo_params_to_reference(module: nn.Module) -> Tree:
     """The inverse of :func:`zoo_params_from_reference`: a reference-keyed
-    pytree of float32 numpy arrays, the blocks stacked on a leading L axis."""
-    stacked: Dict[Tuple[str, ...], list] = {}
+    pytree of float32 numpy arrays, stacked blocks on their leading axes."""
+    stacked: Dict[Tuple[str, ...], Dict[Tuple[int, ...], np.ndarray]] = {}
     tree: Tree = {}
-    for path, layer, p in _zoo_leaves(module):
-        if layer >= 0:
-            stacked.setdefault(path, []).append(_numpy(p))
-            continue
+
+    def put(path: Tuple[str, ...], value: np.ndarray) -> None:
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = _numpy(p)
+        node[path[-1]] = value
+
+    for path, index, p in _zoo_leaves(module):
+        if index:
+            stacked.setdefault(path, {})[index] = _numpy(p)
+        else:
+            put(path, _numpy(p))
     for path, arrays in stacked.items():
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.stack(arrays)
+        axes = tuple(max(ix[a] for ix in arrays) + 1 for a in range(len(next(iter(arrays)))))
+        out = np.empty(axes + next(iter(arrays.values())).shape, np.float32)
+        for ix, a in arrays.items():
+            out[ix] = a
+        put(path, out)
     return tree

@@ -26,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -174,3 +175,28 @@ def cluster_purity(pseudo: torch.Tensor, true: torch.Tensor, num_classes: int) -
     ones = torch.ones_like(pseudo, dtype=torch.int64)
     conf.index_put_((pseudo.long(), true.long()), ones, accumulate=True)
     return float(conf.amax(1).sum()) / pseudo.shape[0]
+
+
+def align_pseudo_to_true(pseudo: torch.Tensor, true: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Greedy cluster → label matching (a diagnostic: clients never see true
+    labels). The largest count of the confusion matrix is matched first,
+    its row and column struck out, num_classes times; a cluster left over
+    (an empty one) takes the remaining labels from the highest down, as the
+    reference's ``pop()`` hands them out. Returns each row's matched label."""
+    conf = torch.zeros(num_classes, num_classes, dtype=torch.int64)
+    ones = torch.ones(pseudo.shape[0], dtype=torch.int64)
+    conf.index_put_((pseudo.long().cpu(), true.long().cpu()), ones, accumulate=True)
+    conf = conf.numpy()
+    mapping = -np.ones(num_classes, np.int64)
+    used = set()
+    for _ in range(num_classes):
+        i, j = np.unravel_index(np.argmax(conf), conf.shape)  # the first maximum, row-major
+        mapping[i] = j
+        conf[i, :] = -1
+        conf[:, j] = -1
+        used.add(j)
+    remaining = [j for j in range(num_classes) if j not in used]
+    for i in range(num_classes):
+        if mapping[i] < 0:
+            mapping[i] = remaining.pop()
+    return torch.from_numpy(mapping).to(pseudo.device)[pseudo.long()]

@@ -1,7 +1,7 @@
 """Data for the port: the numpy-seeded schedules, the vertical split and
 the synthetic generators (counterpart of ``repro.data``)."""
 
-from repro_torch.data.loader import epoch_batches
+from repro_torch.data.loader import batch_iterator, epoch_batches
 from repro_torch.data.synthetic import (
     make_cluster_tabular,
     make_image_classification,
@@ -19,6 +19,7 @@ from repro_torch.data.vertical import (
 
 __all__ = [
     "VerticalSplit",
+    "batch_iterator",
     "epoch_batches",
     "make_cluster_tabular",
     "make_image_classification",

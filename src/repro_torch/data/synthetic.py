@@ -18,6 +18,7 @@ from typing import Tuple
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -148,3 +149,16 @@ def make_image_classification(
     x += torch.randn(num_samples, h, w, channels, generator=g, device=dev)
     x /= 1.0 + template_strength
     return x.float(), labels
+
+
+def numpy_train_test_split(x, y, test_fraction: float = 0.2, seed: int = 0):
+    """((x_train, y_train), (x_test, y_test)): the first ``int(n ·
+    test_fraction)`` rows of ``np.random.RandomState(seed).permutation(n)``
+    are the test set, the rest the training set, as in the reference."""
+    n = x.shape[0]
+    perm = torch.from_numpy(np.random.RandomState(seed).permutation(n))
+    n_test = int(n * test_fraction)
+    te, tr = perm[:n_test], perm[n_test:]
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    te, tr = te.to(x.device), tr.to(x.device)
+    return (x[tr], y[tr]), (x[te], y[te])

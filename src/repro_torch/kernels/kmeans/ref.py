@@ -37,3 +37,9 @@ def kmeans_assign_batched(x: torch.Tensor, centers: torch.Tensor) -> torch.Tenso
 def kmeans_assign(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """x (N, d), centers (C, d) → (N,) int32."""
     return kmeans_assign_batched(x[None], centers[None])[0]
+
+
+def kmeans_min_dist(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """x (N, d), centers (C, d) → (N,) float32: each row's least squared
+    distance, expanded as :func:`sq_dists` does."""
+    return sq_dists(x, centers).amin(-1)

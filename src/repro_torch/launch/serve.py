@@ -8,13 +8,19 @@ reports p50/p99 with, to the step's end on the card. The reference jits the
 step and donates the cache; here the step runs eagerly and updates the
 cache in place.
 
+The cache is the model's own tree: a dense or MoE model's KV cache, the
+SSM family's conv buffers and states (no positions: its decode ignores
+``pos``), or the hybrid's both.
+
 CLI::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         [--reduce] --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-Without ``--device cpu`` it runs on ``cuda`` and raises where there is no
-card. Weights are random, drawn from ``--seed``.
+``--arch`` takes any config the port builds: the dense ones, and
+``granite-moe-3b-a800m`` (MoE), ``mamba2-370m`` (SSM) and ``zamba2-1.2b``
+(hybrid). Without ``--device cpu`` it runs on ``cuda`` and raises where
+there is no card. Weights are random, drawn from ``--seed``.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Transformer building blocks of the model zoo (the dense subset).
+"""Transformer building blocks of the model zoo.
 
 Counterpart of ``repro.models.layers``. The reference declares each module's
 parameters as a shape tree and applies them with pure functions; here each
@@ -56,14 +56,28 @@ def _promote(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator, base_std: float = 0.02):
     """The reference's name rules, in place: ``*scale`` → 1, ``*bias`` (and
-    ``*_b``, ``conv_b*``) → 0, every other parameter N(0, base_std²) drawn
-    from ``generator`` on the parameter's device. Returns ``module``."""
+    ``*_b``, ``conv_b*``) → 0, ``A_log`` → ``log(linspace(1, 16, H))`` on a
+    1-D leaf and 0 otherwise, every other parameter N(0, base_std²) drawn
+    from ``generator`` on the parameter's device. Returns ``module``.
+
+    The reference stacks repeated blocks on leading axes; here they are
+    ``nn.ModuleList`` entries, whose indices stand in the parameter's name.
+    Its ``A_log`` leaf has one axis more for each such index, so a lone
+    Mamba block gets the linspace and every block of a built model 0, as
+    the reference's own init gives them."""
     for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
+        parts = name.split(".")
+        leaf = parts[-1]
         if "scale" in leaf:
             p.fill_(1.0)
         elif "bias" in leaf or leaf.endswith("_b") or "conv_b" in leaf:
             p.zero_()
+        elif "A_log" in leaf:
+            stacked = sum(part.isdigit() for part in parts)
+            if p.dim() + stacked == 1:
+                p.copy_(torch.linspace(1.0, 16.0, p.shape[-1]).log())
+            else:
+                p.zero_()
         else:
             p.normal_(0.0, base_std, generator=generator)
     return module
@@ -103,11 +117,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 # -------------------------------------------------------------------- ffn --
 class FFN(nn.Module):
-    """``w_gate``, ``w_up`` (d, f) and ``w_down`` (f, d); no gate for gelu."""
+    """``w_gate``, ``w_up`` (d, f) and ``w_down`` (f, d); no gate for gelu.
+    ``d_ff`` overrides the config's f (a MoE's shared expert)."""
 
-    def __init__(self, cfg: ArchConfig, device=None) -> None:
+    def __init__(self, cfg: ArchConfig, device=None, d_ff: Optional[int] = None) -> None:
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
         if cfg.activation in ("swiglu", "geglu"):
             self.w_gate = make_param(d, f, cfg=cfg, device=device)
         self.w_up = make_param(d, f, cfg=cfg, device=device)

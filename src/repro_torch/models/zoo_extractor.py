@@ -3,7 +3,8 @@
 Counterpart of ``repro.models.zoo_extractor``. For sequence data each party
 holds a token-range slice; its backbone encodes the slice and mean-pools the
 final hidden states (in f32) into a ``rep_dim`` representation through
-``rep_head`` (d, rep_dim). The module has the port's extractor interface:
+``rep_head`` (d, rep_dim). The backbone is the family's own module
+(``model_zoo.make_backbone``): a decoder, a Mamba2 stack or the hybrid. The module has the port's extractor interface:
 ``init_(generator)`` and ``forward(x)`` over (B, S) token ids, returning
 (B, rep_dim).
 
@@ -20,7 +21,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.model_zoo import DecoderLM, build_model
+from repro_torch.models.model_zoo import build_model, make_backbone
 
 
 class ZooExtractor(nn.Module):
@@ -28,7 +29,7 @@ class ZooExtractor(nn.Module):
         super().__init__()
         self.rep_dim = rep_dim
         self.model = build_model(cfg)
-        self.backbone = DecoderLM(cfg, device)
+        self.backbone = make_backbone(cfg, device)
         self.rep_head = nn.Parameter(torch.empty(cfg.d_model, rep_dim, device=device))
 
     def init_(self, generator: torch.Generator) -> "ZooExtractor":

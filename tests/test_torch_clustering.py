@@ -74,6 +74,8 @@ def test_kmeans_op_on_cpu_matches_reference_oracle(b, n, d, c, monkeypatch):
     assert torch.equal(idx, got)
     want_min = np.stack([np.asarray(jkref.kmeans_min_dist(xs[i], ms[i])) for i in range(b)])
     np.testing.assert_allclose(mind.numpy(), want_min, atol=1e-5, rtol=0)
+    port_min = torch.stack([ref.kmeans_min_dist(_t(x[i]), _t(m[i])) for i in range(b)])
+    assert torch.equal(port_min, mind)  # the port's oracle is the op's CPU route
 
 
 def test_kmeans_op_takes_bf16_and_broadcast_views():

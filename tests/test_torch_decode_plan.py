@@ -131,7 +131,9 @@ def test_blocks_an_sm_holds(smem, warps, regs, blocks):
     assert ops.blocks_per_sm(smem, warps, regs) == blocks
 
 
-@pytest.mark.parametrize("dh, elem", [(8, 2), (128, 2), (256, 2), (4, 4), (128, 4), (256, 4)])
+@pytest.mark.parametrize(
+    "dh, elem", [(8, 2), (64, 2), (128, 2), (256, 2), (4, 4), (64, 4), (128, 4), (256, 4)]
+)
 @pytest.mark.parametrize("g", [1, 3, 16])
 def test_every_head_width_and_group_fits_shared_memory(dh, elem, g):
     plan = ops.launch_plan(2, 4, g, 4096, dh, elem, H100_SMS, REGS, False)
@@ -315,5 +317,22 @@ def test_split_of_the_wrapper_plan_at_the_decode_step_matches_f64():
     key_pos = torch.from_numpy(rng.integers(0, s + 1, (b, s)).astype(np.int32))
     key_pos[torch.arange(b), torch.from_numpy(rng.integers(0, s, b))] = (q_pos + 1).int()
     plan = ops.launch_plan(b, hkv, h // hkv, s, dh, 2, H100_SMS, REGS, False)
+    got = emulate(q, k, v, plan, key_pos=key_pos, q_pos=q_pos)
+    assert (got.double() - _oracle64(q, k, v, None, key_pos, q_pos)).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("shape", [(4, 24, 8, 48, 64), (4, 32, 32, 48, 64)], ids=["G3", "G1"])
+def test_split_of_the_wrapper_plan_at_the_families_decode_steps_matches_f64(shape):
+    """granite-moe's decode step (G = 3) and zamba2's shared block (G = 1)
+    at dh 64: one range of three warps, bf16 caches, the path's mask."""
+    b, h, hkv, s, dh = shape
+    q, k, v = _inputs(b, h, hkv, s, dh, seed=6, dtype=torch.bfloat16)
+    rng = np.random.default_rng(7)
+    q_pos = torch.from_numpy(rng.integers(0, s, b))
+    key_pos = torch.from_numpy(rng.integers(0, s + 1, (b, s)).astype(np.int32))
+    key_pos[torch.arange(b), torch.from_numpy(rng.integers(0, s, b))] = (q_pos + 1).int()
+    plan = ops.launch_plan(b, hkv, h // hkv, s, dh, 2, H100_SMS, REGS, False)
+    assert plan.splits == 1 and plan.warps == 3
+    assert plan.blocks == b * hkv
     got = emulate(q, k, v, plan, key_pos=key_pos, q_pos=q_pos)
     assert (got.double() - _oracle64(q, k, v, None, key_pos, q_pos)).abs().max().item() <= TOL

@@ -7,6 +7,8 @@ reference package, so it also runs where JAX is not installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import copy
+import dataclasses
 import math
 import sys
 from pathlib import Path
@@ -39,7 +41,10 @@ from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
 from repro_torch.launch import batching, vfl_serve  # noqa: E402
+from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
 from repro_torch.launch.vfl_serve import KernelRouter, ServingEngine  # noqa: E402
+from repro_torch.models import moe as zoo_moe  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
 
 # The kernel and the plain version both sum in f32, in different orders: a
 # few ulps on O(1) outputs. Held against a float64 plain version, 2e-5 is the
@@ -535,6 +540,10 @@ def test_step3_launches_the_kernel_for_every_assignment(cuda):
         (231, 130),  # odd d: rows start off the 16-byte grid
         (3, 7, 96),
         (5, 1),
+        (4, 1536),  # granite-moe's decode step
+        (4, 1024),  # mamba2's
+        (4, 2048),  # zamba2's, and mamba2's gated norm (f32)
+        (4, 4096),  # zamba2's gated norm (f32)
     ],
 )
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
@@ -553,6 +562,19 @@ def test_rmsnorm_kernel_matches_plain_version(shape, x_dtype, scale_dtype, cuda)
     # f32: a few ulps of O(1) values; bf16: one rounding step of the output
     tol = 1e-5 if x_dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("rows, d", [(4, 2048), (4, 4096), (128, 2048), (128, 4096)])
+def test_rmsnorm_kernel_at_the_gated_norm_widths_matches_f64(rows, d, cuda):
+    """The Mamba2 gated norm: f32 rows at d_inner (mamba2 2048, zamba2
+    4096), a decode step's 4 and a 32-token prompt's 128 at batch 4."""
+    rng = np.random.default_rng(rows + d)
+    x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32) * 3).to(cuda)
+    scale = torch.from_numpy(1.0 + 0.1 * rng.standard_normal(d).astype(np.float32)).to(cuda)
+    got = rops.rms_norm(x, scale)
+    xd = x.double()
+    want = xd * torch.rsqrt(xd.square().mean(-1, keepdim=True) + 1e-6) * scale.double()
+    torch.testing.assert_close(got.double(), want, atol=1e-5, rtol=0)
 
 
 def test_rmsnorm_kernel_takes_offset_rows_and_eps(cuda):
@@ -629,6 +651,8 @@ def _zoo_cache(b, s, hkv, dh, dtype, device, seed):
         (2, 4, 1, 77, 80),  # G = 4 against one kv head, odd S and dh
         (1, 16, 16, 4096, 256),  # gemma-like widest head, split across blocks
         (2, 32, 2, 9000, 128),  # G = 16, split across blocks
+        (4, 24, 8, 48, 64),  # granite-moe's (G = 3, dh 64)
+        (4, 32, 32, 48, 64),  # zamba2's shared block (G = 1, dh 64)
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -657,6 +681,8 @@ def test_decode_attention_kernel_matches_plain_version(shape, dtype, ragged, cud
         (1, 16, 16, 300, 128),
         (2, 32, 2, 9000, 128),  # split across blocks
         (8, 24, 8, 32768, 128),  # long context: the first ranges wholly masked
+        (4, 24, 8, 48, 64),  # granite-moe's
+        (4, 32, 32, 48, 64),  # zamba2's shared block
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1023,3 +1049,69 @@ def test_router_card_rule(cuda):
     got = engine.predict_logits_partial(x, 1)
     assert ops.LAUNCHES == before + 1
     assert got.shape == (20, 3) and bool(torch.isfinite(got).all())
+
+
+# ------------------------------------------------ the zoo's MoE, SSM, hybrid --
+def _family_model(name, cuda):
+    cfg = chip_smoke._zoo_cfg(name, reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    return cfg, model, params
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.ZOO_SMALL_LAUNCHES))
+def test_reduced_zoo_family_on_the_card_matches_the_cpu(name, cuda):
+    """Eight decode steps and a prefill of the reduced config (f32
+    activations, f32 cache) on the card and on the CPU from the same
+    weights: logits within 1e-4 of their scale, and exactly the config's
+    RMSNorm and decode-attention launches a step."""
+    want_rms, want_dec = chip_smoke.ZOO_SMALL_LAUNCHES[name]
+    cfg, model, params = _family_model(name, cuda)
+    host = copy.deepcopy(params).cpu()
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))
+    toks = toks.to(torch.int32)
+    caches = {
+        dev: chip_smoke._f32_cache(zeros_like_spec(model.cache_shapes(2, 8), dev))
+        for dev in (cuda, "cpu")
+    }
+    for t in range(8):
+        outs = {}
+        for dev, p in ((cuda, params), ("cpu", host)):
+            batch = {"token": toks[:, t : t + 1].to(dev), "pos": torch.full((2, 1), t).int().to(dev)}
+            rops.LAUNCHES = dops.LAUNCHES = 0
+            outs[dev], caches[dev] = model.decode_fn(p, caches[dev], batch)
+            torch.cuda.synchronize()
+            if dev == cuda:
+                assert (rops.LAUNCHES, dops.LAUNCHES) == (want_rms, want_dec)
+        assert chip_smoke._rel(outs[cuda].cpu(), outs["cpu"]) <= 1e-4, t
+    rops.LAUNCHES = dops.LAUNCHES = 0
+    got = model.prefill_fn(params, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert (rops.LAUNCHES, dops.LAUNCHES) == (want_rms, 0)
+    want = model.prefill_fn(host, {"tokens": toks})
+    assert chip_smoke._rel(got.cpu(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["decode", "prefill-drops"])
+def test_moe_apply_on_the_card_keeps_the_cpus_slots(case, cuda):
+    """The router's top-k and the dispatch on the card keep the same slots
+    as on the CPU, and the output agrees within 1e-5 of its scale. At
+    prefill the capacity factor is 0.5: 16 slots an expert for 128, so half
+    the slots or more drop whatever the routing."""
+    cfg, _, params = _family_model("granite-moe-3b-a800m", cuda)
+    if case == "prefill-drops":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    moe_params = params.blocks[0].moe
+    host = copy.deepcopy(moe_params).cpu()
+    b, s = (4, 1) if case == "decode" else (2, 32)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((rng.standard_normal((b, s, cfg.d_model)) + 0.5).astype(np.float32))
+    cap = zoo_moe.capacity(cfg, b * s, s)
+    with torch.no_grad():
+        *_, dest_c, keep_c = zoo_moe.route(moe_params, x.reshape(b * s, -1).to(cuda), cfg, cap)
+        *_, dest_h, keep_h = zoo_moe.route(host, x.reshape(b * s, -1), cfg, cap)
+        got, _ = zoo_moe.moe_apply(moe_params, x.to(cuda), cfg)
+        want, _ = zoo_moe.moe_apply(host, x, cfg)
+    assert torch.equal(keep_c.cpu(), keep_h) and torch.equal(dest_c.cpu(), dest_h)
+    assert bool(keep_h.all()) == (case == "decode")
+    assert chip_smoke._rel(got.cpu(), want) <= 1e-5

@@ -6,6 +6,9 @@ scale, head_dim 64). Weights are drawn with numpy into the reference's
 pytree and carried into the port by ``bridge.zoo_params_from_reference``;
 tokens are numpy draws. With ``activation_dtype="float32"`` both sides run
 the same f32 arithmetic in different orders: 1e-5 of the outputs' scale.
+
+The ``family_*`` helpers at the end hold any family's reduced model to the
+reference the same way; ``test_torch_zoo_{moe,ssm,hybrid}.py`` call them.
 """
 
 import dataclasses
@@ -112,15 +115,12 @@ def test_input_specs_match_the_reference(shape):
 
 @pytest.mark.parametrize("name", ["gemma-7b", "phi4-mini-3.8b", "qwen1.5-32b", "llama3-405b"])
 def test_cache_shapes_match_the_reference(name):
-    tcfg, jcfg = get_config(name).reduced(), jx_get_config(name).reduced()
-    mine = model_zoo.build_model(tcfg).cache_shapes(3, 11)["blocks"]
-    ref = jx_zoo.build_model(jcfg).cache_shapes(3, 11)["blocks"]
-    for k in ("k", "v", "pos", "index"):
-        assert mine[k].shape == ref[k].shape
-        assert str(mine[k].dtype).split(".")[-1] == str(ref[k].dtype)
+    family_cache_shapes(name)
 
 
-@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-1.2b", "deepseek-v2-236b", "qwen2-vl-72b"])
+@pytest.mark.parametrize(
+    "name", ["deepseek-v2-236b", "qwen2-vl-72b", "seamless-m4t-large-v2"]
+)
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #14"):
         model_zoo.build_model(get_config(name).reduced())
@@ -133,17 +133,7 @@ def test_sliding_window_raises():
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_bridge_round_trip_and_key_check(arch):
-    _, tcfg, _, _, jparams, tparams = _setup(arch)
-    back = bridge.zoo_params_to_reference(tparams)
-    flat_ref = jax.tree_util.tree_leaves_with_path(jparams)
-    flat_back = jax.tree_util.tree_leaves_with_path(back)
-    assert [p for p, _ in flat_ref] == [p for p, _ in flat_back]
-    for (_, a), (_, b) in zip(flat_ref, flat_back):
-        np.testing.assert_array_equal(np.asarray(a), b)
-    broken = dict(back)
-    broken["final_ln_scal"] = broken.pop("final_ln_scale")
-    with pytest.raises(ValueError, match="missing"):
-        bridge.zoo_params_from_reference(broken, tcfg, device="cpu")
+    family_bridge_round_trip(_setup(arch), ("final_ln_scale",))
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
@@ -180,35 +170,12 @@ def test_one_block_matches(arch):
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_prefill_and_hidden_match(arch):
-    _, tcfg, jmodel, tmodel, jparams, tparams = _setup(arch)
-    toks = _tokens(tcfg)
-    want = jmodel.prefill_fn(jparams, {"tokens": jnp.asarray(toks)})
-    got = make_prefill_step(tmodel)(tparams, {"tokens": torch.from_numpy(toks)})
-    assert got.shape == (B, tcfg.vocab_size) and _rel(got, want) < RTOL
-    want_h = jmodel.hidden_fn(jparams, {"tokens": jnp.asarray(toks)})
-    with torch.no_grad():
-        got_h = tmodel.hidden_fn(tparams, {"tokens": torch.from_numpy(toks)})
-    assert _rel(got_h, want_h) < RTOL
+    family_prefill_and_hidden(_setup(arch))
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_eight_decode_steps_match_logits_and_cache(arch):
-    _, tcfg, jmodel, tmodel, jparams, tparams = _setup(arch)
-    toks = _tokens(tcfg)
-    jcache = _f32_caches(jx_specs.zeros_like_spec(jmodel.cache_shapes(B, S)))
-    tcache = _f32_caches(specs.zeros_like_spec(tmodel.cache_shapes(B, S), "cpu"))
-    jdecode = jax.jit(jmodel.decode_fn)
-    for t in range(S):
-        batch = {"token": toks[:, t : t + 1], "pos": np.full((B, 1), t, np.int32)}
-        want, jcache = jdecode(jparams, jcache, jax.tree_util.tree_map(jnp.asarray, batch))
-        got, tcache = tmodel.decode_fn(
-            tparams, tcache, {k: torch.from_numpy(v) for k, v in batch.items()}
-        )
-        assert _rel(got, want) < RTOL, t
-    for k in ("k", "v"):
-        assert _rel(tcache["blocks"][k], jcache["blocks"][k]) < RTOL
-    for k in ("pos", "index"):
-        np.testing.assert_array_equal(tcache["blocks"][k].numpy(), np.asarray(jcache["blocks"][k]))
+    family_decode_steps(_setup(arch), seed=2)
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
@@ -259,13 +226,7 @@ def test_decode_positions_decreasing_along_slots_match_reference(arch):
 def test_prefill_equals_sequential_decode(arch):
     """The port against itself: the blocked-scan prefill and the decode
     path (the decode-attention op over the cache) give the same logits."""
-    _, tcfg, _, tmodel, _, tparams = _setup(arch)
-    toks = torch.from_numpy(_tokens(tcfg, seed=5))
-    full = tmodel.prefill_fn(tparams, {"tokens": toks})
-    cache = _f32_caches(specs.zeros_like_spec(tmodel.cache_shapes(B, S), "cpu"))
-    decode = tmodel.decode_fn
-    logits, _ = serve.prefill(decode, tparams, cache, toks)
-    assert _rel(logits, full.numpy()) < 2e-5
+    family_prefill_equals_sequential_decode(_setup(arch))
 
 
 @pytest.mark.parametrize("act", ["float32", "bfloat16"])
@@ -346,3 +307,175 @@ def test_serve_cli_raises_without_a_card():
         pytest.skip("a CUDA device is present: the no-card error cannot show")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "phi4-mini-3.8b", "--reduce"])
+
+
+# ------------------------------------------------- any family's reduced model --
+def family_cfgs(name, act="float32", **changes):
+    """The reference's and the port's reduced config of ``name``, with
+    ``changes`` (e.g. ``capacity_factor``, ``chunk``, ``num_layers``) applied
+    to both; the MoE and SSM sub-configs take theirs by field name."""
+    out = []
+    for get in (jx_get_config, get_config):
+        cfg = dataclasses.replace(get(name).reduced(), activation_dtype=act)
+        top = {k: v for k, v in changes.items() if hasattr(cfg, k)}
+        for sub in ("moe", "ssm"):
+            part = getattr(cfg, sub)
+            mine = {k: v for k, v in changes.items() if part is not None and hasattr(part, k)}
+            if mine:
+                top[sub] = dataclasses.replace(part, **mine)
+        out.append(dataclasses.replace(cfg, **top))
+    return out
+
+
+def load_module(module, tree):
+    """A reference sub-tree (one block's ``moe`` or ``mamba``) into a port
+    module, leaf by leaf; the names must match."""
+    leaves = bridge._flat(tree)
+    names = dict(module.named_parameters())
+    assert sorted(names) == sorted(".".join(k) for k in leaves)
+    with torch.no_grad():
+        for path, value in leaves.items():
+            names[".".join(path)].copy_(torch.from_numpy(np.asarray(value)))
+    return module
+
+
+def family_setup(name, act="float32", seed=1, **changes):
+    """(jcfg, tcfg, jmodel, tmodel, jparams, tparams): the reference's
+    pytree redrawn with numpy and carried into the port."""
+    jcfg, tcfg = family_cfgs(name, act, **changes)
+    jmodel, tmodel = jx_zoo.build_model(jcfg), model_zoo.build_model(tcfg)
+    tree = _numpy_tree(jmodel.init(jax.random.PRNGKey(0)), seed=seed)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    tparams = bridge.zoo_params_from_reference(tree, tcfg, device="cpu")
+    return jcfg, tcfg, jmodel, tmodel, jparams, tparams
+
+
+def _leaves(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def family_prefill_and_hidden(setup):
+    _, tcfg, jmodel, tmodel, jparams, tparams = setup
+    toks = _tokens(tcfg, shape=(B, S))
+    want = jmodel.prefill_fn(jparams, {"tokens": jnp.asarray(toks)})
+    got = make_prefill_step(tmodel)(tparams, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (B, tcfg.vocab_size) and _rel(got, want) < RTOL
+    want_h = jmodel.hidden_fn(jparams, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        got_h = tmodel.hidden_fn(tparams, {"tokens": torch.from_numpy(toks)})
+    assert _rel(got_h, want_h) < RTOL
+
+
+def family_decode_steps(setup, seed=3):
+    """Every decode step's logits, then every leaf of the cache, against the
+    reference's decode with the f32-cast cache: floats within RTOL of their
+    scale, positions and write indices equal."""
+    _, tcfg, jmodel, tmodel, jparams, tparams = setup
+    b, s = B, S
+    toks = _tokens(tcfg, seed=seed, shape=(b, s))
+    jcache = _f32_caches(jx_specs.zeros_like_spec(jmodel.cache_shapes(b, s)))
+    tcache = _f32_caches(specs.zeros_like_spec(tmodel.cache_shapes(b, s), "cpu"))
+    jdecode = jax.jit(jmodel.decode_fn)
+    for t in range(s):
+        batch = {"token": toks[:, t : t + 1], "pos": np.full((b, 1), t, np.int32)}
+        want, jcache = jdecode(jparams, jcache, jax.tree_util.tree_map(jnp.asarray, batch))
+        got, tcache = tmodel.decode_fn(
+            tparams, tcache, {k: torch.from_numpy(v) for k, v in batch.items()}
+        )
+        assert _rel(got, want) < RTOL, t
+    mine, ref = _leaves(tcache), _leaves(jcache)
+    assert sorted(mine) == sorted(ref)
+    for path, want in ref.items():
+        if np.issubdtype(np.asarray(want).dtype, np.integer):
+            np.testing.assert_array_equal(mine[path].numpy(), np.asarray(want))
+        else:
+            assert _rel(mine[path], want) < RTOL, path
+
+
+def family_prefill_equals_sequential_decode(setup, seed=5):
+    """The port against itself in f32 with the f32-cast cache: the
+    full-sequence forward and the decode path give the same logits."""
+    _, tcfg, _, tmodel, _, tparams = setup
+    toks = torch.from_numpy(_tokens(tcfg, seed=seed, shape=(B, S)))
+    full = tmodel.prefill_fn(tparams, {"tokens": toks})
+    cache = _f32_caches(specs.zeros_like_spec(tmodel.cache_shapes(B, S), "cpu"))
+    logits, _ = serve.prefill(tmodel.decode_fn, tparams, cache, toks)
+    assert _rel(logits, full.numpy()) < 2e-5
+
+
+def family_cache_shapes(name, **changes):
+    """The decode cache's spec tree equals the reference's, leaf for leaf."""
+    jcfg, tcfg = family_cfgs(name, "bfloat16", **changes)
+    for batch, cache_len in ((3, 11), (4, 48)):
+        mine = _leaves(model_zoo.build_model(tcfg).cache_shapes(batch, cache_len))
+        ref = _leaves(jx_zoo.build_model(jcfg).cache_shapes(batch, cache_len))
+        assert sorted(mine) == sorted(ref)
+        for path, want in ref.items():
+            assert mine[path].shape == want.shape, path
+            assert str(mine[path].dtype).split(".")[-1] == str(want.dtype), path
+
+
+def family_bridge_round_trip(setup, drop):
+    """Port → reference tree gives back the reference's leaves bit for bit;
+    a tree that lacks ``drop`` or has an extra key is refused."""
+    *_, jparams, tparams = setup
+    tcfg = setup[1]
+    back = bridge.zoo_params_to_reference(tparams)
+    flat_ref = jax.tree_util.tree_leaves_with_path(jparams)
+    flat_back = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in flat_ref] == [p for p, _ in flat_back]
+    for (_, a), (_, b) in zip(flat_ref, flat_back):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    missing = jax.tree_util.tree_map(lambda a: a, back)
+    node = missing
+    for k in drop[:-1]:
+        node = node[k]
+    node.pop(drop[-1])
+    with pytest.raises(ValueError, match="missing"):
+        bridge.zoo_params_from_reference(missing, tcfg, device="cpu")
+    extra = dict(back, stray=np.zeros(1, np.float32))
+    with pytest.raises(ValueError, match="unexpected"):
+        bridge.zoo_params_from_reference(extra, tcfg, device="cpu")
+    again = bridge.zoo_params_to_reference(
+        bridge.zoo_params_from_reference(back, tcfg, device="cpu")
+    )
+    for (_, a), (_, b) in zip(flat_back, jax.tree_util.tree_leaves_with_path(again)):
+        np.testing.assert_array_equal(a, b)
+
+
+def family_init_rule(name):
+    """A built model's init by the reference's name rules: ``A_log`` 0 on
+    every stacked block (as the reference's init gives it), ``dt_bias`` and
+    ``conv_bias`` 0, scales 1, ``D`` and the weights N(0, 0.02²)."""
+    jcfg, tcfg = family_cfgs(name, "bfloat16")
+    ref = _leaves(jx_zoo.build_model(jcfg).init(jax.random.PRNGKey(0)))
+    mine = _leaves(bridge.zoo_params_to_reference(
+        model_zoo.build_model(tcfg).init(torch.Generator().manual_seed(0))
+    ))
+    assert sorted(mine) == sorted(ref)
+    for path, want in ref.items():
+        got, want = mine[path], np.asarray(want)
+        assert got.shape == want.shape, path
+        leaf = path[-1]
+        if "scale" in leaf or "bias" in leaf or "A_log" in leaf:
+            np.testing.assert_array_equal(got, want)  # constants: 1 or 0
+            assert (got == (1.0 if "scale" in leaf else 0.0)).all(), path
+        else:  # drawn: both N(0, 0.02²); a leaf of a few values only within 10 σ
+            for a in (got, want):
+                if a.size >= 1000:
+                    assert abs(a.std() - 0.02) < 0.2 * 0.02 and abs(a.mean()) < 0.01, path
+                else:
+                    assert 0 < np.abs(a).max() < 0.2, path
+
+
+def family_serve_cli(name, capsys):
+    argv = ["--arch", name, "--reduce", "--batch", "2", "--prompt-len", "4", "--gen", "3"]
+    assert serve.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={name} on cpu generated (2, 3)" in out and "sample:" in out

@@ -332,6 +332,12 @@ SMS = 132  # an H100's SMs
         (231, 130, torch.float32),  # odd d: rows start off the 16-byte grid
         (264, 3071, torch.float32),  # 768 threads, a row off the grid spans 769 vectors
         (4, 16384, torch.bfloat16),  # the widest config (llama3-405b)
+        (4, 1536, torch.bfloat16),  # granite-moe's decode step
+        (4, 1024, torch.bfloat16),  # mamba2's
+        (4, 2048, torch.bfloat16),  # zamba2's
+        (4, 2048, torch.float32),  # mamba2's gated norm (d_inner, f32)
+        (4, 4096, torch.float32),  # zamba2's gated norm
+        (128, 4096, torch.float32),  # zamba2's gated norm over a 32-token prompt
         (5000, 96, torch.float32),  # narrow rows share a block
     ],
 )
@@ -373,3 +379,14 @@ def test_every_config_norm_runs_from_registers(name):
         for rows in (4, 128, 8192):
             threads, rows_per_block, _ = rms_ops.launch_shape(rows, d, itemsize, SMS)
             assert rms_ops.vectors_per_thread(threads // rows_per_block, d, itemsize, True) > 0
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-1.2b"])
+def test_mamba_gated_norm_runs_from_registers(name):
+    """The gated norm runs in f32 at d_inner (2048 and 4096)."""
+    cfg = all_configs()[name]
+    d = cfg.ssm.expand * cfg.d_model
+    assert d == {"mamba2-370m": 2048, "zamba2-1.2b": 4096}[name]
+    for rows in (4, 128, 8192):
+        threads, rows_per_block, _ = rms_ops.launch_shape(rows, d, 4, SMS)
+        assert rms_ops.vectors_per_thread(threads // rows_per_block, d, 4, True) > 0
