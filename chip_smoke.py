@@ -136,24 +136,37 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    and L = 32 per decode step, 65 and 0 per ``prefill_fn`` or extractor
    forward;
 14. zoo families, small: the reduced ``granite-moe-3b-a800m`` (MoE),
-   ``mamba2-370m`` (SSM) and ``zamba2-1.2b`` (hybrid) in f32 activations
-   served on the card and on the CPU's plain route with the same weights:
-   every decode step's logits within 1e-4, equal greedy tokens, exact
-   launches a step (the MoE run's smallest top-k gate margin printed);
+   ``mamba2-370m`` (SSM), ``zamba2-1.2b`` (hybrid), ``deepseek-v2-236b``
+   (MLA + MoE), ``qwen2-vl-72b`` (vlm, M-RoPE), ``seamless-m4t-large-v2``
+   (audio encoder-decoder, ``enc_out`` encoded from the same frames on each
+   device) and phi4-mini under a window of 4 (a ring wrapped four times) in
+   f32 activations served on the card and on the CPU's plain route with the
+   same weights: every decode step's logits within 1e-4, equal greedy
+   tokens, exact launches a step (the MoE runs' smallest top-k gate margin
+   printed);
 15. zoo families, full width (the fourth path), one config at a time, the
    card freed between them: the exact parameter count, ``launch/serve``'s
    prefill + greedy decode at batch 4, prompt 32, 16 new tokens, warm-up
    and timed (p50/p99 per token step, tokens/s, peak memory), and prefill
-   ≡ sequential decode in f32 activations with the f32-cast cache (granite
-   at capacity factor 8, drop-free at prefill) within 1e-4. Launches a
-   decode step, checked exactly: granite 65 RMSNorm and 32 decode
-   attention, mamba2 97 and 0, zamba2 89 and 6; a ``prefill_fn`` the same
-   RMSNorm count and no decode attention.
+   ≡ sequential decode in f32 activations with the f32-cast cache (the
+   MoEs at capacity factor 8, drop-free at prefill; seamless with an f32
+   ``enc_out``) within 1e-4. deepseek-v2 runs 3 of its 60 layers and
+   qwen2-vl 4 of its 80 (ZOO_DEPTH: the full depth does not fit the card);
+   qwen2-vl also prefills its 1024-row patch prefix with 1024 text tokens;
+   phi4-mini last, under a window of 16: its 16-slot ring wraps twice over
+   a serve run's 48 positions, and prefill ≡ ring decode over all 48.
+   Launches a decode step, checked exactly: granite 65 RMSNorm and 32
+   decode attention, mamba2 97 and 0, zamba2 89 and 6, deepseek-v2 13 and
+   0 (MLA decodes absorbed, in plain torch), qwen2-vl 9 and 4, seamless 73
+   and 24, windowed phi4 65 and 32; a ``prefill_fn`` the same RMSNorm count
+   and no decode attention, but seamless's 122 (its encoder's 49 more, as
+   each serve run's ``enc_out``).
 
 The RMSNorm and decode-attention ``[kernel]`` rows include the families'
-shapes (d 1536, 1024 and 2048 in bf16, the gated norm's 2048 and 4096 in
-f32; dh 64 at G = 3 and G = 1), and every row is also held against a
-float64 plain version.
+shapes (d 1536, 1024, 2048, 5120 and 8192 in bf16, the gated norm's 2048
+and 4096 and MLA's latent norms' 1536 and 512 in f32; dh 64 at G = 3 and
+G = 1, dh 128 at G = 8, and a 16-slot ring under a window of 16), and
+every row is also held against a float64 plain version.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
 5-6, then 7-8, then 9, then 9a, then 9b, then 9c, then 10-11a, then 13,
@@ -214,6 +227,7 @@ from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
 from repro_torch.launch.vfl_serve import ServingEngine, serve_traffic, serving_path  # noqa: E402
+from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models import moe as zoo_moe  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.zoo_extractor import make_zoo_extractor  # noqa: E402
@@ -497,6 +511,12 @@ RMS_SHAPES = [
     (4, 2048, torch.bfloat16),
     (4, 2048, torch.float32),
     (4, 4096, torch.float32),
+    # the last families' decode steps: deepseek-v2's d and qwen2-vl's d
+    # (bf16), MLA's q and kv latent norms (f32)
+    (4, 5120, torch.bfloat16),
+    (4, 8192, torch.bfloat16),
+    (4, 1536, torch.float32),
+    (4, 512, torch.float32),
 ]
 # Decode attention vs plain version: f32 outputs, softmax-weighted means of
 # bf16 cache rows computed in f32 on both sides; a few ulps. 2e-5 is the
@@ -523,6 +543,12 @@ DECODE_SHAPES = [
     # granite (G = 3, dh 64) and zamba2's shared block (G = 1, dh 64)
     (4, 24, 8, 48, 64, "positions"),
     (4, 32, 32, 48, 64, "positions"),
+    # the last families: qwen2-vl (G = 8, dh 128) and seamless's decoder
+    # self-attention (G = 1, dh 64), and phi4-mini's 16-slot ring under a
+    # window of 16 (ragged positions, some older than the window)
+    (4, 64, 8, 48, 128, "positions"),
+    (4, 16, 16, 48, 64, "positions"),
+    (4, 24, 8, 16, 128, "window"),
 ]
 # key ranges wanted in the decode plan phase (ops.split_plan), at the long
 # context shape (unmasked and with ragged lengths) and at the G = 16 shape
@@ -531,7 +557,20 @@ DECODE_PLAN_RANGES = (1, 4, 8, 16, 32, 64, 128)
 ZOO_TIMES = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms")
 ZOO_ARCH = "phi4-mini-3.8b"
 ZOO_FAMILIES = ("granite-moe-3b-a800m", "mamba2-370m", "zamba2-1.2b")
+# the zoo's last families (MLA + MoE, vlm, audio encoder-decoder)
+ZOO_LAST = ("deepseek-v2-236b", "qwen2-vl-72b", "seamless-m4t-large-v2")
+# Full width with fewer layers where the full depth does not fit one card's
+# 80 GB in f32 (deepseek-v2: 943 GB; qwen2-vl: 291 GB): dense0 and two MoE
+# blocks, and 4 of 80 layers.
+ZOO_DEPTH = {"deepseek-v2-236b": 3, "qwen2-vl-72b": 4}
+# phi4-mini served with a sliding window: 16 ring slots over the 48
+# positions of a serve run, so the ring wraps twice; the reduced run's 4
+# slots wrap four times over its 16
+ZOO_WINDOW, ZOO_SMALL_WINDOW = 16, 4
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 4, 32, 16
+# qwen2-vl's prefill_fn with the config's patch prefix: batch 1, 1024 patch
+# rows and 1024 text tokens (a multiple of the scan's 1024-key chunk)
+VLM_TEXT = 1024
 # Exact parameter counts at full width (the reference's param_shapes(); phi4:
 # 32 x 100,669,440 per layer + 614,596,608 embedding + 3,072), and the
 # launches a decode step, (RMSNorm, decode attention): 2L + 1 norms (a dense
@@ -543,20 +582,35 @@ ZOO_PARAMS = {
     "granite-moe-3b-a800m": 3_374_295_552,
     "mamba2-370m": 419_825_152,
     "zamba2-1.2b": 1_170_473_856,
+    "deepseek-v2-236b": 9_330_795_520,
+    "qwen2-vl-72b": 6_002_163_712,
+    "seamless-m4t-large-v2": 1_632_131_072,
 }
+# The last families: an MLA block norms 4 times (ln1, q_norm, kv_norm,
+# ln2) and decodes in plain torch (absorbed: no decode-attention launch);
+# seamless's decoder blocks norm 3 times and self-attend through the kernel
+# (cross-attention is the blocked scan), and its prefill_fn also runs the
+# encoder (2 · 24 + 1 norms), as does filling a serve run's enc_out.
 ZOO_LAUNCHES = {
     ZOO_ARCH: (2 * 32 + 1, 32),
     "granite-moe-3b-a800m": (2 * 32 + 1, 32),
     "mamba2-370m": (2 * 48 + 1, 0),
     "zamba2-1.2b": (2 * 38 + 2 * 6 + 1, 6),
+    "deepseek-v2-236b": (4 * 3 + 1, 0),
+    "qwen2-vl-72b": (2 * 4 + 1, 4),
+    "seamless-m4t-large-v2": (3 * 24 + 1, 24),
 }
-# The reduced configs' launches a step: 2 layers, or zamba2's one group of 2
-# blocks and one shared-block application.
+# The reduced configs' launches a step: 2 layers (deepseek: dense0 and one
+# MoE block), or zamba2's one group of 2 blocks and one shared-block
+# application; windowed phi4-mini (ZOO_SMALL_WINDOW) launches as the plain.
 ZOO_SMALL_LAUNCHES = {
     ZOO_ARCH: (5, 2),
     "granite-moe-3b-a800m": (5, 2),
     "mamba2-370m": (5, 0),
     "zamba2-1.2b": (7, 1),
+    "deepseek-v2-236b": (9, 0),
+    "qwen2-vl-72b": (5, 2),
+    "seamless-m4t-large-v2": (7, 2),
 }
 # prefill ≡ sequential decode at full width in f32 activations, TF32 off: the
 # blocked-scan prefill and the decode kernel sum in different orders; logits
@@ -1004,11 +1058,14 @@ def phase_rmsnorm(gen) -> dict:
 
 
 def _decode_mask(mode, b: int, s: int, gen) -> tuple:
-    """(lengths, key_pos, q_pos, valid (B, S)) for one of DECODE_SHAPES'
-    masks. Positions: stored +1 in no order along the slots (0 = empty),
-    one slot per sequence holding the query's own position, and at least one
-    sequence whose valid slots are no prefix."""
-    lengths = key_pos = q_pos = None
+    """(lengths, key_pos, q_pos, window, valid (B, S)) for one of
+    DECODE_SHAPES' masks. Positions: stored +1 in no order along the slots
+    (0 = empty), one slot per sequence holding the query's own position, and
+    at least one sequence whose valid slots are no prefix. Window: an S-slot
+    ring under a window of S at a ragged query position per sequence (past
+    2S: wrapped twice), each slot holding the last position it took, or
+    (about a third of them) the one a turn before, older than the window."""
+    lengths = key_pos = q_pos = window = None
     valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
     if mode == "lengths":
         lengths = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
@@ -1021,7 +1078,18 @@ def _decode_mask(mode, b: int, s: int, gen) -> tuple:
         valid = (key_pos > 0) & (key_pos - 1 <= q_pos[:, None])
         prefix = torch.arange(s, device="cuda")[None, :] < valid.sum(-1, keepdim=True)
         check(bool((valid != prefix).any(-1).any()), "the position mask drew only prefixes")
-    return lengths, key_pos, q_pos, valid
+    elif mode == "window":
+        window = s
+        q_pos = torch.randint(2 * s, 3 * s, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        slot = torch.arange(s, device="cuda", dtype=torch.int32)
+        last = q_pos[:, None] - (q_pos[:, None] - slot) % s  # the slot's latest position
+        stale = torch.rand(b, s, generator=gen, device="cuda") < 1 / 3
+        stale[torch.arange(b, device="cuda"), (q_pos % s).long()] = False  # the query's own
+        key_pos = (last - s * stale.int() + 1).int()
+        valid = (key_pos > 0) & (key_pos - 1 <= q_pos[:, None])
+        valid &= q_pos[:, None] - (key_pos - 1) < window
+        check(bool((~valid).any()) and bool(valid.any(-1).all()), "the window mask drew no mix")
+    return lengths, key_pos, q_pos, window, valid
 
 
 def phase_decode_attention(gen) -> dict:
@@ -1035,18 +1103,24 @@ def phase_decode_attention(gen) -> dict:
             torch.randn(b, s, hkv, dh, generator=gen, device="cuda").bfloat16().transpose(1, 2)
             for _ in range(2)
         )
-        lengths, key_pos, q_pos, valid = _decode_mask(mode, b, s, gen)
+        lengths, key_pos, q_pos, window, valid = _decode_mask(mode, b, s, gen)
 
         def kernel():
-            return dops.decode_attention(q, kc, vc, lengths, key_pos=key_pos, q_pos=q_pos)
+            return dops.decode_attention(
+                q, kc, vc, lengths, key_pos=key_pos, q_pos=q_pos, window=window
+            )
+
+        def plain():
+            return dref.decode_attention(q, kc, vc, lengths, key_pos, q_pos, window)
 
         got = kernel()
-        want = dref.decode_attention(q, kc, vc, lengths, key_pos, q_pos)
+        want = plain()
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         check(bool(torch.isfinite(got).all()), f"non-finite decode attention at {(b, h, s)}")
         check(err <= DECODE_TOL, f"decode attention max|err| {err} > {DECODE_TOL} at {(b, h, s)}")
-        err64 = (got.double() - decode_oracle64(q, kc, vc, lengths, key_pos, q_pos)).abs().max()
+        want64 = decode_oracle64(q, kc, vc, lengths, key_pos, q_pos, window)
+        err64 = (got.double() - want64).abs().max()
         err64 = err64.item()
         check(err64 <= DECODE_TOL, f"decode attention error vs f64 {err64} at {(b, h, s, dh)}")
         q4 = q.bfloat16()[:, :, None, :]
@@ -1063,19 +1137,24 @@ def phase_decode_attention(gen) -> dict:
             "shape": [b, h, hkv, s, dh] + ([mode] if mode else []),
             "max_abs_err": err,
             "ms": time_ms(kernel),
-            "plain_ms": time_ms(lambda: dref.decode_attention(q, kc, vc, lengths, key_pos, q_pos)),
+            "plain_ms": time_ms(plain),
             "library_ms": time_ms(library),
             "device_ms": device_ms(kernel),
             "library_device_ms": device_ms(library),
         }
-        mask_bytes = {None: 0, "lengths": 4 * b, "positions": 4 * b * s + 4 * b}[mode]
+        mask_bytes = 4 * b if mode == "lengths" else (4 * b * s + 4 * b if mode else 0)
         nbytes = 2 * keys * hkv * dh * 2 + 2 * b * h * dh * 4 + mask_bytes
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 4 * h * dh * keys / H100_F32_FLOPS
         row["bound_ms"] = max(t_bytes, t_ops) * 1e3
         row["bound_by"] = "bytes" if t_bytes > t_ops else "operations"
         rows_out.append(row)
         times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
-        what = {None: "", "lengths": " ragged lengths", "positions": " non-prefix positions"}
+        what = {
+            None: "",
+            "lengths": " ragged lengths",
+            "positions": " non-prefix positions",
+            "window": f" ring under window {window}",
+        }
         print(
             f"[kernel] decode_attention B={b} H={h} Hkv={hkv} S={s} dh={dh} bf16 cache"
             f"{what[mode]}: {_plan_text(plan)} | max|err| {err:.3e} (vs f64 {err64:.3e}) | "
@@ -1092,7 +1171,7 @@ def _plan_text(plan) -> str:
     )
 
 
-def decode_oracle64(q, kc, vc, lengths=None, key_pos=None, q_pos=None) -> torch.Tensor:
+def decode_oracle64(q, kc, vc, lengths=None, key_pos=None, q_pos=None, window=None):
     """Decode attention in float64, with the plain version's masks (the
     plain version computes in float32 whatever its inputs)."""
     b, h, dh = q.shape
@@ -1104,6 +1183,8 @@ def decode_oracle64(q, kc, vc, lengths=None, key_pos=None, q_pos=None) -> torch.
         valid &= torch.arange(s, device=q.device)[None, :] < lengths[:, None]
     if key_pos is not None:
         valid &= (key_pos > 0) & (key_pos - 1 <= q_pos[:, None])
+    if window is not None:
+        valid &= q_pos[:, None] - (key_pos - 1) < window
     p = torch.softmax(torch.where(valid[:, None, None, :], scores, -1e30), dim=-1)
     return torch.einsum("bkgs,bksd->bkgd", p, vc.double()).reshape(b, h, dh)
 
@@ -2321,14 +2402,32 @@ def _f32_cache(cache: dict) -> dict:
 
 def _zoo_cfg(name: str, reduced: bool, **moe_changes):
     """The config in f32 activations; reduced phi4 with two kv heads (G = 2:
-    ``reduced()`` alone gives kv heads = heads)."""
-    cfg = get_config(name)
-    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg, activation_dtype="float32")
+    ``reduced()`` alone gives kv heads = heads); at full width cut to
+    ZOO_DEPTH layers where the full depth does not fit the card."""
+    base = get_config(name).reduced() if reduced else _full_cfg(name)
+    cfg = dataclasses.replace(base, activation_dtype="float32")
     if reduced and name == ZOO_ARCH:
         cfg = dataclasses.replace(cfg, num_kv_heads=2)
     if moe_changes and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe_changes))
     return cfg
+
+
+def _full_cfg(name: str):
+    """The config at full width, cut to ZOO_DEPTH layers where it has one."""
+    cfg = get_config(name)
+    if name in ZOO_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=ZOO_DEPTH[name])
+    return cfg
+
+
+def _frames(cfg, batch: int, seed: int, rows: int = 0) -> torch.Tensor:
+    """0.02·N(0, 1) ``embeds`` (B, rows or the config's prefix, d) on the
+    card, the stub frontend's patch or frame rows (as ``serve.make_cache``
+    draws them from the same seed)."""
+    shape = (batch, rows or cfg.prefix_tokens, cfg.d_model)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return 0.02 * torch.randn(shape, generator=gen, device="cuda")
 
 
 def _min_topk_margin(fn):
@@ -2350,19 +2449,22 @@ def _min_topk_margin(fn):
         zoo_moe.route = plain
 
 
-def phase_zoo_small(name: str, tag: str) -> None:
-    """A reduced config (f32 activations) served on the card and on the
-    CPU's plain route with the same weights and prompt. The logits of every
-    decode step are compared (greedy tokens of random weights repeat, so
-    their equality alone says little), and the card's launches a step
-    checked exactly. A MoE run prints its smallest top-k gate margin."""
+def phase_zoo_small(name: str, tag: str, window=None) -> None:
+    """A reduced config (f32 activations, ``window`` its window_override)
+    served on the card and on the CPU's plain route with the same weights
+    and prompt (an audio model's ``enc_out`` encoded on each from the same
+    frames). The logits of every decode step are compared (greedy tokens of
+    random weights repeat, so their equality alone says little), and the
+    card's launches a step checked exactly. A MoE run prints its smallest
+    top-k gate margin."""
     cfg = _zoo_cfg(name, reduced=True)
     want_rms, want_dec = ZOO_SMALL_LAUNCHES[name]
-    model = build_model(cfg)
+    model = build_model(cfg, window_override=window)
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
     prompt = torch.randint(
         0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(SEED), dtype=torch.int32
     )
+    frames = _frames(cfg, 2, SEED + 3) if cfg.family == "audio" else None
     outs, margins = {}, {}
     for dev, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
         steps = []
@@ -2372,10 +2474,14 @@ def phase_zoo_small(name: str, tag: str) -> None:
             steps.append(logits_.cpu())
             return logits_, cache_
 
+        cache = _f32_cache(zeros_like_spec(model.cache_shapes(2, 16), dev))
+        if cfg.family == "audio":  # the same frames encoded on each device
+            with torch.no_grad():
+                cache["enc_out"] = model_zoo._encode(p, cfg, frames.to(dev))
+
         def run():
-            cache = _f32_cache(zeros_like_spec(model.cache_shapes(2, 16), dev))
-            logits, cache = serve.prefill(decode, p, cache, prompt.to(dev))
-            return serve.greedy_decode(decode, p, cache, logits, 8, 8)[0]
+            logits, cache_ = serve.prefill(decode, p, cache, prompt.to(dev))
+            return serve.greedy_decode(decode, p, cache_, logits, 8, 8)[0]
 
         torch.cuda.synchronize()
         rops.LAUNCHES = dops.LAUNCHES = 0
@@ -2394,10 +2500,11 @@ def phase_zoo_small(name: str, tag: str) -> None:
     margin = ""
     if margins:
         margin = f"; smallest top-k gate margin card {margins['cuda']:.3e}, CPU {margins['cpu']:.3e}"
-    check(rel <= ZOO_RTOL, f"reduced {name} card vs CPU logits differ by {rel}{margin}")
-    check(torch.equal(outs["cuda"][1], outs["cpu"][1]), f"reduced {name} greedy tokens differ{margin}")
+    what = f"reduced {name}{f' window {window}' if window else ''}"
+    check(rel <= ZOO_RTOL, f"{what} card vs CPU logits differ by {rel}{margin}")
+    check(torch.equal(outs["cuda"][1], outs["cpu"][1]), f"{what} greedy tokens differ{margin}")
     print(
-        f"[{tag}] reduced {name} ({cfg.family}, {cfg.num_layers} layers, d {cfg.d_model}"
+        f"[{tag}] {what} ({cfg.family}, {cfg.num_layers} layers, d {cfg.d_model}"
         f"{f', G {cfg.num_heads // cfg.num_kv_heads}' if cfg.num_heads else ''}, f32): card vs CPU "
         f"plain route logits of all "
         f"16 decode steps max rel diff {rel:.2e}, greedy tokens equal {outs['cuda'][1][0].tolist()}, "
@@ -2418,20 +2525,63 @@ def _counted(totals: dict, want_rms: int, want_dec: int, what: str) -> None:
     rops.LAUNCHES = dops.LAUNCHES = 0
 
 
-def phase_zoo_serve(name: str, line: str, tag: str, totals: dict):
-    """A config at full width through ``launch/serve``: the exact parameter
-    count; prefill + greedy decode at batch 4, prompt 32, 16 new tokens,
-    warm-up and timed (p50/p99 per token step, tokens/s, peak memory);
-    prefill ≡ sequential decode in f32 activations with the f32-cast cache
-    (a MoE at capacity factor 8, drop-free at prefill) within ZOO_RTOL. Every
-    part's launches are checked exactly and added to ``totals``. Returns the
-    config and the card's generator."""
-    cfg = get_config(name)
+def encoder_norms(cfg) -> int:
+    """RMSNorm launches of an audio model's encoder (two a block and the
+    final norm), run once a prefill_fn or a serve run's enc_out; 0 for the
+    other families."""
+    return 2 * cfg.encoder_layers + 1 if cfg.family == "audio" else 0
+
+
+def step_floor_ms(cfg, params) -> tuple:
+    """The least time a decode step at batch ZOO_BATCH could take on the
+    card, and what bounds it, the larger of: the f32 weights the step needs
+    over the memory rate (all but the token table when the unembedding has
+    its own, and but an audio model's encoder; of a MoE's routed experts
+    only the min(E, B·k) that B tokens at top-k reach), and its f32
+    operations (2·B a dense weight, 2·B·k/E a routed expert weight, and an
+    audio model's cross-attention K and V of ``enc_out``, recomputed at
+    every step) over the f32 rate. Third, for a MoE: the ms to read every
+    expert, which the port's batched SwiGLU over all E does (its cost, not
+    the floor); else None."""
+    dense = routed = 0
+    for n, p in params.named_parameters():
+        if n.startswith("enc_") or (n == "embed.tok" and not cfg.tie_embeddings):
+            continue
+        if n.rsplit(".", 1)[-1] in ("w_gate_e", "w_up_e", "w_down_e"):
+            routed += p.numel() * p.element_size()
+        else:
+            dense += p.numel() * p.element_size()
+    e, k = (cfg.moe.num_experts, cfg.moe.top_k) if cfg.moe is not None else (1, 1)
+    weights = dense + routed * min(e, ZOO_BATCH * k) / e
+    ops = 2 * ZOO_BATCH * (dense + routed * k / e) / 4
+    if cfg.family == "audio":
+        kv = cfg.num_kv_heads * cfg.resolved_head_dim
+        ops += 2 * 2 * ZOO_BATCH * cfg.prefix_tokens * cfg.d_model * kv * cfg.num_layers
+    t_bytes, t_ops = weights / H100_BYTES_PER_S, ops / H100_F32_FLOPS
+    every = (dense + routed) / H100_BYTES_PER_S * 1e3 if cfg.moe is not None else None
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations", every
+
+
+def phase_zoo_serve(name: str, line: str, tag: str, totals: dict, window=None):
+    """A config at full width (cut to ZOO_DEPTH layers where it has one;
+    ``window`` its window_override) through ``launch/serve``: the exact
+    parameter count; prefill + greedy decode at batch 4, prompt 32, 16 new
+    tokens, warm-up and timed (p50/p99 per token step, tokens/s, peak
+    memory); prefill ≡ sequential decode in f32 activations with the
+    f32-cast cache (a MoE at capacity factor 8, drop-free at prefill; an
+    audio model's f32 ``enc_out``) within ZOO_RTOL, over the prompt, or
+    over all 48 positions under a window (its ring wraps twice). qwen2-vl
+    also runs a prefill_fn over its 1024-row patch prefix and 1024 text
+    tokens. Every part's launches are checked exactly and added to
+    ``totals``. Returns the config and the card's generator."""
+    cfg = _full_cfg(name)
     per_step = ZOO_LAUNCHES[name]
+    enc_rms = encoder_norms(cfg)
+    label = f"{name} window {window}" if window else name
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = build_model(cfg)
+    model = build_model(cfg, window_override=window)
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -2441,9 +2591,19 @@ def phase_zoo_serve(name: str, line: str, tag: str, totals: dict):
     attn = "attention-free" if not cfg.num_heads else (
         f"heads {cfg.num_heads}/{cfg.num_kv_heads} x {cfg.resolved_head_dim}"
     )
+    if cfg.mla is not None:
+        m = cfg.mla
+        attn = (
+            f"MLA heads {cfg.num_heads}, kv latent {m.kv_lora_rank}, q latent {m.q_lora_rank}, "
+            f"rope {m.rope_head_dim} / nope {m.nope_head_dim} / v {m.v_head_dim}"
+        )
+    depth = f"{cfg.num_layers} of {get_config(name).num_layers} layers" if name in ZOO_DEPTH else (
+        f"{cfg.num_layers} layers"
+    )
     print(
-        f"[{tag}] {name} ({cfg.family}): {n_params} parameters ({gb:.2f} GB f32), "
-        f"{cfg.num_layers} layers, d {cfg.d_model}, {attn}, vocab {cfg.vocab_size}"
+        f"[{tag}] {label} ({cfg.family}): {n_params} parameters ({gb:.2f} GB f32), {depth}"
+        f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, d "
+        f"{cfg.d_model}, {attn}, vocab {cfg.vocab_size}"
         f"{', tied' if cfg.tie_embeddings else ''}; seeded on the card in {init_s:.2f} s"
     )
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -2455,11 +2615,15 @@ def phase_zoo_serve(name: str, line: str, tag: str, totals: dict):
     results = []
     for timed in (False, True):
         rec = serve.LatencyRecorder() if timed else None
-        cache = zeros_like_spec(model.cache_shapes(ZOO_BATCH, steps), "cuda")
+        frames = torch.Generator(device="cuda").manual_seed(SEED + 3)  # an audio model's
+        cache = serve.make_cache(model, params, ZOO_BATCH, steps, "cuda", frames)
         logits, cache = serve.prefill(decode, params, cache, prompt, rec)
         first = logits
         out, cache = serve.greedy_decode(decode, params, cache, logits, ZOO_PROMPT, ZOO_GEN, rec)
-        _counted(totals, steps * per_step[0], steps * per_step[1], f"{name} serve ({per_step} a step)")
+        _counted(
+            totals, enc_rms + steps * per_step[0], steps * per_step[1],
+            f"{label} serve ({per_step} a step, {enc_rms} for enc_out)",
+        )
         results.append((first, out, rec))
     first, out, rec = results[1]
     check(out.shape == (ZOO_BATCH, ZOO_GEN), f"{name}: generated {tuple(out.shape)}")
@@ -2468,36 +2632,77 @@ def phase_zoo_serve(name: str, line: str, tag: str, totals: dict):
     check(torch.equal(out, results[0][1]), f"{name}: the timed run's tokens differ from the warm-up's")
     s = rec.summary()
     peak = torch.cuda.max_memory_allocated() / 1e9
+    floor, floor_by, every = step_floor_ms(cfg, params)
+    every = f", reading every expert {every:.3f} ms" if every is not None else ""
     print(
-        f"[{tag}] {name} serve batch {ZOO_BATCH}, prompt {ZOO_PROMPT}, {ZOO_GEN} new tokens "
+        f"[{tag}] {label} serve batch {ZOO_BATCH}, prompt {ZOO_PROMPT}, {ZOO_GEN} new tokens "
         f"({s['batches']} decode steps, bf16 activations, f32 weights): per-token step p50 "
         f"{s['p50_ms']:.3f} ms p99 {s['p99_ms']:.3f} ms mean {s['mean_ms']:.3f} ms, "
-        f"{s['rows_per_s']:.1f} tokens/s | peak memory {peak:.2f} GB | launches a step "
+        f"{s['rows_per_s']:.1f} tokens/s | step floor {floor:.3f} ms ({floor_by}{every}) | peak "
+        f"memory "
+        f"{peak:.2f} GB | launches a step "
         f"{per_step[0]} rmsnorm / {per_step[1]} decode_attention | sequence 0: {out[0].tolist()} "
         f"| {line}"
     )
-    print(json.dumps({"zoo_serve": name, "summary": s, "peak_memory_gb": peak}))
+    print(json.dumps({"zoo_serve": label, "summary": s, "peak_memory_gb": peak, "floor_ms": floor}))
 
     # prefill ≡ sequential decode, bf16 (reported) and f32 with the f32 cache
-    # (held to ZOO_RTOL)
-    pre_bf16 = model.prefill_fn(params, {"tokens": prompt})
-    _counted(totals, per_step[0], 0, f"{name} prefill_fn")
-    rel_bf16 = _rel(pre_bf16, first)
-    model32 = build_model(_zoo_cfg(name, reduced=False, capacity_factor=8.0))
-    pre32 = model32.prefill_fn(params, {"tokens": prompt})
-    _counted(totals, per_step[0], 0, f"{name} f32 prefill_fn")
-    cache = _f32_cache(zeros_like_spec(model32.cache_shapes(ZOO_BATCH, ZOO_PROMPT), "cuda"))
-    dec32, _ = serve.prefill(model32.decode_fn, params, cache, prompt)
-    _counted(totals, ZOO_PROMPT * per_step[0], ZOO_PROMPT * per_step[1], f"{name} f32 decode")
+    # (held to ZOO_RTOL); under a window over all 48 positions
+    check_len = steps if window else ZOO_PROMPT
+    tokens = prompt
+    if window:
+        more = torch.randint(0, cfg.vocab_size, (ZOO_BATCH, ZOO_GEN), generator=gen, device="cuda")
+        tokens = torch.cat([prompt, more.int()], dim=1)
+    batch = {"tokens": tokens}
+    if cfg.family == "audio":  # the serve runs' frames
+        batch["embeds"] = _frames(cfg, ZOO_BATCH, SEED + 3)
+    pre_bf16 = model.prefill_fn(params, batch)
+    _counted(totals, enc_rms + per_step[0], 0, f"{label} prefill_fn")
+    model32 = build_model(_zoo_cfg(name, reduced=False, capacity_factor=8.0), window_override=window)
+    pre32 = model32.prefill_fn(params, batch)
+    _counted(totals, enc_rms + per_step[0], 0, f"{label} f32 prefill_fn")
+    cache = _f32_cache(zeros_like_spec(model32.cache_shapes(ZOO_BATCH, check_len), "cuda"))
+    if cfg.family == "audio":
+        with torch.no_grad():
+            cache["enc_out"] = model_zoo._encode(params, model32.cfg, batch["embeds"])
+    dec32, cache = serve.prefill(model32.decode_fn, params, cache, tokens)
+    _counted(
+        totals, enc_rms + check_len * per_step[0], check_len * per_step[1], f"{label} f32 decode"
+    )
     check(pre32.dtype == dec32.dtype == torch.float32, f"{name}: f32 logits")
     check(bool(torch.isfinite(pre32).all() and torch.isfinite(dec32).all()), f"{name}: non-finite")
     rel32 = _rel(dec32, pre32)
-    check(rel32 <= ZOO_RTOL, f"{name}: f32 prefill vs sequential decode differ by {rel32}")
+    check(rel32 <= ZOO_RTOL, f"{label}: f32 prefill vs sequential decode differ by {rel32}")
+    rel_bf16 = _rel(pre_bf16, first) if check_len == ZOO_PROMPT else float("nan")
+    extra = ""
+    if window:
+        slots = cache["blocks"]["pos"].shape[-1]
+        extra = f", a ring of {slots} slots wrapped {check_len // slots - 1} times"
+        check(slots == window, f"{label}: {slots} ring slots, not {window}")
     print(
-        f"[{tag}] {name} prefill_fn ≡ sequential decode over the {ZOO_PROMPT}-token prompt: f32 "
-        f"activations, f32 cache{', capacity factor 8' if cfg.moe else ''}: max rel logit diff "
-        f"{rel32:.3e} (limit {ZOO_RTOL:g}, TF32 off); bf16 activations {rel_bf16:.3e}"
+        f"[{tag}] {label} prefill_fn ≡ sequential decode over {check_len} tokens: f32 "
+        f"activations, f32 cache{', capacity factor 8' if cfg.moe else ''}"
+        f"{', f32 enc_out' if cfg.family == 'audio' else ''}{extra}: max rel logit diff "
+        f"{rel32:.3e} (limit {ZOO_RTOL:g}, TF32 off); bf16 activations vs the serve run's "
+        f"first logits {rel_bf16:.3e}"
     )
+    if cfg.family == "vlm":
+        toks = torch.randint(0, cfg.vocab_size, (1, VLM_TEXT), generator=gen, device="cuda")
+        vbatch = {"tokens": toks.int(), "embeds": _frames(cfg, 1, SEED + 4)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.prefill_fn(params, vbatch)
+        torch.cuda.synchronize()
+        vms = (time.perf_counter() - t0) * 1e3
+        _counted(totals, per_step[0], 0, f"{label} prefill_fn with the patch prefix")
+        check(logits.shape == (1, cfg.vocab_size), f"{name}: patch prefill logits {logits.shape}")
+        check(bool(torch.isfinite(logits).all()), f"{name}: non-finite patch prefill logits")
+        print(
+            f"[{tag}] {label} prefill_fn at batch 1 over {cfg.prefix_tokens} patch rows + "
+            f"{VLM_TEXT} text tokens (M-RoPE grid side {int(math.sqrt(cfg.prefix_tokens))}): "
+            f"logits finite, {vms:.1f} ms, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+        )
     del params, model, model32, cache
     torch.cuda.empty_cache()
     return cfg, gen
@@ -2725,8 +2930,9 @@ def main() -> int:
     )
 
     t0 = time.time()
-    for name in ZOO_FAMILIES:
+    for name in ZOO_FAMILIES + ZOO_LAST:
         phase_zoo_small(name, "zoo-families")
+    phase_zoo_small(ZOO_ARCH, "zoo-families", window=ZOO_SMALL_WINDOW)
     families_small_s = time.time() - t0
 
     # ---- the zoo families at full width: counters from 0, read right after
@@ -2734,15 +2940,18 @@ def main() -> int:
     ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
     fam = {"rmsnorm": 0, "decode_attention": 0}
-    for name in ZOO_FAMILIES:  # one at a time: each frees the card before the next
+    for name in ZOO_FAMILIES + ZOO_LAST:  # one at a time: each frees the card before the next
         phase_zoo_serve(name, line, "zoo-families", fam)
+    phase_zoo_serve(ZOO_ARCH, line, "zoo-families", fam, window=ZOO_WINDOW)
     torch.cuda.synchronize()
     families_s = time.time() - t0
     check(ops.LAUNCHES == kops.LAUNCHES == 0, "a VFL kernel launched on the zoo families' path")
     print(
         f"[path] zoo-families: rmsnorm launches {fam['rmsnorm']}, decode_attention launches "
         f"{fam['decode_attention']} (each part exactly granite 65 / 32, mamba2 97 / 0, zamba2 "
-        f"89 / 6 a decode step, the same rmsnorm count and 0 a prefill_fn) in {families_s:.1f} s"
+        f"89 / 6, deepseek-v2 13 / 0, qwen2-vl 9 / 4, seamless 73 / 24, windowed phi4 65 / 32 a "
+        f"decode step, the same rmsnorm count and 0 a prefill_fn, seamless 122 / 0 a prefill_fn "
+        f"and 49 / 0 an enc_out) in {families_s:.1f} s"
     )
     print(
         f"[time] {time.time() - t_start:.1f} s from the build on; few-shot phases "

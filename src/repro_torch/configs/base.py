@@ -3,8 +3,8 @@
 A copy of ``repro.configs.base`` (pure data; the port imports nothing of the
 reference package). Every name resolves as it does there, so a config built
 in one package compares equal field by field with the other's. The port's
-model zoo builds the ``dense``, ``moe``, ``ssm`` and ``hybrid`` families so
-far (see :func:`repro_torch.models.model_zoo.build_model`).
+model zoo builds every family (see
+:func:`repro_torch.models.model_zoo.build_model`).
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@
 //   seq strides; len (B,) int32 or all S; kpos (B, S) and qpos (B,) int32
 //   or none -> out (B, H, dh) f32; G = H / Hkv
 //   key l of sequence b is valid when l < len[b] and, with positions,
-//   kpos[b, l] > 0 and kpos[b, l] - 1 <= qpos[b]
+//   kpos[b, l] > 0 and kpos[b, l] - 1 <= qpos[b], and, with a sliding
+//   window w >= 1, qpos[b] - (kpos[b, l] - 1) < w
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/decode_attention/kernel.py::_decode_kernel (launched by
@@ -196,7 +197,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1) decode_attention_kernel(
     const int* __restrict__ lengths, const int* __restrict__ kpos, const int* __restrict__ qpos,
     float* __restrict__ out, float* __restrict__ part_acc, float* __restrict__ part_ml, int h,
     int hkv, int s, int dh, long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, int range_keys, float scale) {
+    long long v_sh, long long v_ss, int range_keys, int window, float scale) {
   using C = Chunk<T>;
   constexpr int E = C::E;  // elements a 16-byte chunk
   extern __shared__ float4 smem_f4[];
@@ -326,7 +327,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 1) decode_attention_kernel(
     bool valid = live;
     if (kpb && live) {
       const int kp = reinterpret_cast<const int*>(slot + 2 * KT * pitch)[key];
-      valid = kp > 0 && kp - 1 <= q_at;
+      valid = kp > 0 && kp - 1 <= q_at && (window == 0 || q_at - (kp - 1) < window);
     }
     // online softmax, per head: the tile's max over its 16 keys (lanes l
     // and l + 16 hold the same score), rescale, P kept in sc
@@ -486,6 +487,7 @@ struct Args {
   int b, h, hkv, s, dh;
   long long k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   int splits, range_keys, warps;
+  int window;  // 0: no sliding window
   float scale;
 };
 
@@ -503,7 +505,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   decode_attention_kernel<T, G><<<grid, 32 * a.warps, smem, stream>>>(
       a.q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.lengths, a.kpos, a.qpos,
       a.out, merge ? a.part_acc : nullptr, a.part_ml, a.h, a.hkv, a.s, a.dh, a.k_sb, a.k_sh,
-      a.k_ss, a.v_sb, a.v_sh, a.v_ss, a.range_keys, a.scale);
+      a.k_ss, a.v_sb, a.v_sh, a.v_ss, a.range_keys, a.window, a.scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !merge) return e;
   decode_attention_merge<<<dim3(a.h, a.b), MERGE_THREADS, 0, stream>>>(
@@ -524,7 +526,7 @@ int run(const Args& a, void* stream) {
   if (a.b < 1 || a.b > 65535 || a.hkv < 1 || a.hkv > 65535 || a.h % a.hkv != 0 ||
       a.h / a.hkv > MAX_G || a.s < 1 || a.dh < 1 || a.dh > MAX_DH || a.dh % E != 0 ||
       a.splits > 65535 || !aligned || !plan_ok || (a.splits > 1 && (!a.part_acc || !a.part_ml)) ||
-      (a.kpos == nullptr) != (a.qpos == nullptr))
+      (a.kpos == nullptr) != (a.qpos == nullptr) || a.window < 0 || (a.window > 0 && !a.kpos))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   switch (padded_group(a.h / a.hkv)) {
@@ -579,9 +581,10 @@ extern "C" int decode_attention_registers(int elem, int g) {
 // are (B, Hkv, S, dh) with dh contiguous and batch / head / seq strides in
 // elements (multiples of 16 bytes, 16-byte aligned bases). lengths is (B,)
 // int32 or null (all S valid); kpos (B, S) and qpos (B,) int32 contiguous,
-// both or neither (no position mask). The plan: `splits` key ranges of
-// `range_keys` keys (a multiple of 16; every range holds a key of S), one
-// block of `warps` warps each. q is multiplied
+// both or neither (no position mask); `window` >= 1 adds the sliding
+// window's term to the position mask (kpos required), 0 means none. The
+// plan: `splits` key ranges of `range_keys` keys (a multiple of 16; every
+// range holds a key of S), one block of `warps` warps each. q is multiplied
 // by `scale` = log2(e) / sqrt(dh). With splits > 1, part_acc (B·H·splits·dh)
 // and part_ml (B·H·splits·2) f32 are the merge's scratch. Returns the
 // launches' cudaError_t; launches on `stream`, does not synchronize and
@@ -591,11 +594,11 @@ extern "C" int decode_attention_registers(int elem, int g) {
                       const int* kpos, const int* qpos, float* out, float* part_acc,            \
                       float* part_ml, int b, int h, int hkv, int s, int dh, long long k_sb,     \
                       long long k_sh, long long k_ss, long long v_sb, long long v_sh,           \
-                      long long v_ss, int splits, int range_keys, int warps, float scale,       \
-                      void* stream) {                                                           \
+                      long long v_ss, int splits, int range_keys, int warps, int window,        \
+                      float scale, void* stream) {                                              \
     const Args a{q,    k,    v,    lengths, kpos,   qpos,       out,   part_acc, part_ml,      \
                  b,    h,    hkv,  s,       dh,     k_sb,       k_sh,  k_ss,     v_sb,         \
-                 v_sh, v_ss, splits, range_keys, warps, scale};                                  \
+                 v_sh, v_ss, splits, range_keys, warps, window, scale};                          \
     return run<T>(a, stream);                                                                   \
   }
 

@@ -20,8 +20,11 @@ most 256, the strides multiples of 16 bytes, and G = H / Hkv at most 16.
 means all S. ``key_pos`` (B, S) and ``q_pos`` (B,), given together, mask
 each slot by its stored position as the reference's decode does: slot l is
 valid when ``key_pos[b, l] > 0`` and ``key_pos[b, l] - 1 <= q_pos[b]``
-(positions stored +1, 0 for an empty slot). A key must pass every mask
-given, and each sequence must keep at least one key.
+(positions stored +1, 0 for an empty slot). ``window`` (an int >= 1, with
+``key_pos`` only) adds the sliding window's term ``q_pos[b] - (key_pos[b,
+l] - 1) < window``: a ring buffer's slots hold positions in no order, which
+the per-slot mask already takes. A key must pass every mask given, and each
+sequence must keep at least one key.
 
 The kernel cuts each sequence's cache into key ranges, one block of 1-4
 warps each, and deals a range's 16-key tiles to its warps in turn
@@ -199,12 +202,12 @@ def launch_plan(
 
 # the C entry's arguments: q, k, v, lengths, kpos, qpos, out, part_acc,
 # part_ml; B, H, Hkv, S, dh; six cache strides; splits, range_keys, warps;
-# scale; stream
+# window (0: none); scale; stream
 ARGTYPES = (
     [ctypes.c_void_p] * 9
     + [ctypes.c_int] * 5
     + [ctypes.c_longlong] * 6
-    + [ctypes.c_int] * 3
+    + [ctypes.c_int] * 4
     + [ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -287,7 +290,7 @@ def device_plan(q: torch.Tensor, k_cache: torch.Tensor, lengths=None) -> Plan:
     return launch_plan(b, hkv, h // hkv, s, dh, elem, _sms[dev], regs, lengths is not None)
 
 
-def _check(q, k_cache, v_cache, lengths, key_pos, q_pos) -> None:
+def _check(q, k_cache, v_cache, lengths, key_pos, q_pos, window=None) -> None:
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not torch.is_tensor(t):
             raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
@@ -324,6 +327,11 @@ def _check(q, k_cache, v_cache, lengths, key_pos, q_pos) -> None:
                 raise ValueError(f"{name} must be integer, got {t.dtype}")
             if t.device != q.device:
                 raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if window is not None:
+        if key_pos is None:
+            raise ValueError("a window masks by stored positions: give key_pos and q_pos with it")
+        if isinstance(window, bool) or not isinstance(window, int) or window < 1:
+            raise ValueError(f"window must be an int >= 1, got {window!r}")
 
 
 def _check_card(q, k_cache, v_cache) -> None:
@@ -355,7 +363,9 @@ def _check_card(q, k_cache, v_cache) -> None:
             )
 
 
-def launch(q, k_cache, v_cache, lengths, key_pos, q_pos, plan: Plan) -> torch.Tensor:
+def launch(
+    q, k_cache, v_cache, lengths, key_pos, q_pos, plan: Plan, window: Optional[int] = None
+) -> torch.Tensor:
     """Launch the kernel on checked CUDA inputs with a given plan (the
     wrapper passes :func:`device_plan`'s; a benchmark may pass another)."""
     global LAUNCHES
@@ -387,6 +397,7 @@ def launch(q, k_cache, v_cache, lengths, key_pos, q_pos, plan: Plan) -> torch.Te
         plan.splits,
         plan.range_keys,
         plan.warps,
+        0 if window is None else window,
         math.log2(math.e) / math.sqrt(dh),  # scores in log2 units: the kernel takes exp2
     )
     if err != 0:
@@ -402,17 +413,18 @@ def decode_attention(
     lengths: Optional[torch.Tensor] = None,
     key_pos: Optional[torch.Tensor] = None,
     q_pos: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """One query token per sequence against its KV cache.
 
     q (B, H, dh), caches (B, Hkv, S, dh), lengths (B,) int or None, key_pos
-    (B, S) and q_pos (B,) int or both None → (B, H, dh) float32; head h
-    attends with kv head h // (H / Hkv)."""
-    _check(q, k_cache, v_cache, lengths, key_pos, q_pos)
+    (B, S) and q_pos (B,) int or both None, window an int >= 1 or None →
+    (B, H, dh) float32; head h attends with kv head h // (H / Hkv)."""
+    _check(q, k_cache, v_cache, lengths, key_pos, q_pos, window)
     if q.device.type == "cpu":
-        return ref.decode_attention(q, k_cache, v_cache, lengths, key_pos, q_pos)
+        return ref.decode_attention(q, k_cache, v_cache, lengths, key_pos, q_pos, window)
     if q.device.type != "cuda":
         raise ValueError(f"no decode-attention route for device {q.device}")
     _check_card(q, k_cache, v_cache)
     plan = device_plan(q, k_cache, lengths)
-    return launch(q, k_cache, v_cache, lengths, key_pos, q_pos, plan)
+    return launch(q, k_cache, v_cache, lengths, key_pos, q_pos, plan, window)

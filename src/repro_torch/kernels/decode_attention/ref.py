@@ -6,8 +6,9 @@ sequence ``lengths`` included (columns at or past ``lengths[b]`` score
 −1e30), plus the decode mask of ``repro.models.layers.attention_apply``
 over each slot's stored position: with ``key_pos`` (the cache's positions
 stored +1, 0 for an empty slot) and ``q_pos``, slot l of sequence b is
-valid when ``key_pos[b, l] > 0`` and ``key_pos[b, l] - 1 <= q_pos[b]``.
-A key must pass every mask given. It is the oracle the CUDA kernel is held
+valid when ``key_pos[b, l] > 0`` and ``key_pos[b, l] - 1 <= q_pos[b]``,
+and, with a sliding ``window``, ``q_pos[b] - (key_pos[b, l] - 1) < window``
+(the reference's ``dpos < window``). A key must pass every mask given. It is the oracle the CUDA kernel is held
 against and the route a CPU tensor takes.
 """
 
@@ -26,10 +27,12 @@ def decode_attention(
     lengths: Optional[torch.Tensor] = None,
     key_pos: Optional[torch.Tensor] = None,
     q_pos: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """q (B, H, dh), caches (B, Hkv, S, dh), lengths (B,) int or None (all
-    S valid), key_pos (B, S) and q_pos (B,) int or both None → (B, H, dh)
-    float32. Head h attends with kv head h // G, G = H / Hkv."""
+    S valid), key_pos (B, S) and q_pos (B,) int or both None, window an int
+    or None (taken with key_pos only) → (B, H, dh) float32. Head h attends
+    with kv head h // G, G = H / Hkv."""
     b, h, dh = q.shape
     _, hkv, s, _ = k_cache.shape
     g = h // hkv
@@ -39,8 +42,11 @@ def decode_attention(
     if lengths is not None:
         masks.append(torch.arange(s, device=q.device)[None, :] < lengths.to(q.device)[:, None])
     if key_pos is not None:
-        kp = key_pos.to(q.device)
-        masks.append((kp > 0) & (kp - 1 <= q_pos.to(q.device)[:, None]))
+        kp, qp = key_pos.to(q.device), q_pos.to(q.device)[:, None]
+        valid = (kp > 0) & (kp - 1 <= qp)
+        if window is not None:
+            valid &= qp - (kp - 1) < window
+        masks.append(valid)
     if masks:
         valid = masks[0] if len(masks) == 1 else masks[0] & masks[1]
         scores = torch.where(valid[:, None, None, :], scores, -1e30)

@@ -8,19 +8,25 @@ reports p50/p99 with, to the step's end on the card. The reference jits the
 step and donates the cache; here the step runs eagerly and updates the
 cache in place.
 
-The cache is the model's own tree: a dense or MoE model's KV cache, the
-SSM family's conv buffers and states (no positions: its decode ignores
-``pos``), or the hybrid's both.
+The cache is the model's own tree: a dense, MoE or vlm model's KV cache
+(MLA's latent cache for deepseek; a ring of ``window`` slots under a
+sliding window), the SSM family's conv buffers and states (no positions: its
+decode ignores ``pos``), the hybrid's both, or the audio family's decoder
+KV cache with the encoder's output ``enc_out``, which is filled by
+encoding 0.02·N(0, 1) frame embeddings (:func:`make_cache`), as the
+reference's ``launch/serve.py`` does.
 
 CLI::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         [--reduce] --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
-``--arch`` takes any config the port builds: the dense ones, and
-``granite-moe-3b-a800m`` (MoE), ``mamba2-370m`` (SSM) and ``zamba2-1.2b``
-(hybrid). Without ``--device cpu`` it runs on ``cuda`` and raises where
-there is no card. Weights are random, drawn from ``--seed``.
+``--arch`` takes every zoo config: the dense ones, ``granite-moe-3b-a800m``
+(MoE), ``deepseek-v2-236b`` (MLA + MoE), ``qwen2-vl-72b`` (vlm, M-RoPE),
+``mamba2-370m`` (SSM), ``zamba2-1.2b`` (hybrid) and
+``seamless-m4t-large-v2`` (audio encoder-decoder). Without ``--device cpu``
+it runs on ``cuda`` and raises where there is no card. Weights are random,
+drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import specs as SP
 from repro_torch.launch.batching import LatencyRecorder
 from repro_torch.launch.steps import make_decode_step
-from repro_torch.models.model_zoo import build_model
+from repro_torch.models.model_zoo import _encode, build_model
 
 
 def prefill(
@@ -74,6 +80,21 @@ def greedy_decode(
     return torch.cat(generated, dim=1), cache
 
 
+def make_cache(model, params, batch: int, cache_len: int, device, generator: torch.Generator):
+    """The model's zero decode cache for ``batch`` sequences of
+    ``cache_len`` steps on ``device``. An audio model's ``enc_out`` holds the
+    encoder's output over 0.02·N(0, 1) frame embeddings drawn from
+    ``generator`` (the stub frontend, as the reference's ``launch/serve.py`` fills it)."""
+    cfg = model.cfg
+    cache = SP.zeros_like_spec(model.cache_shapes(batch, cache_len), device)
+    if cfg.family == "audio":
+        shape = (batch, cfg.prefix_tokens, cfg.d_model)
+        emb = 0.02 * torch.randn(shape, generator=generator, device=device)
+        with torch.no_grad():
+            cache["enc_out"] = _encode(params, cfg, emb).to(cache["enc_out"].dtype)
+    return cache
+
+
 def _timed_decode(decode, params, cache, batch, rec: Optional[LatencyRecorder], rows: int):
     if rec is None:
         return decode(params, cache, batch)
@@ -106,7 +127,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen)
     b = args.batch
-    cache = SP.zeros_like_spec(model.cache_shapes(b, args.prompt_len + args.gen), dev)
+    cache = make_cache(model, params, b, args.prompt_len + args.gen, dev, gen)
     decode = make_decode_step(model)
     prompt = torch.randint(
         0, cfg.vocab_size, (b, args.prompt_len), generator=gen, device=dev, dtype=torch.int32

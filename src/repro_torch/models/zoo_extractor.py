@@ -4,9 +4,15 @@ Counterpart of ``repro.models.zoo_extractor``. For sequence data each party
 holds a token-range slice; its backbone encodes the slice and mean-pools the
 final hidden states (in f32) into a ``rep_dim`` representation through
 ``rep_head`` (d, rep_dim). The backbone is the family's own module
-(``model_zoo.make_backbone``): a decoder, a Mamba2 stack or the hybrid. The module has the port's extractor interface:
+(``model_zoo.make_backbone``): a decoder (MLA and vlm included), a Mamba2
+stack or the hybrid. The module has the port's extractor interface:
 ``init_(generator)`` and ``forward(x)`` over (B, S) token ids, returning
 (B, rep_dim).
+
+It passes tokens only, so an audio backbone, whose forward needs the
+encoder's frame embeddings, is refused with a ``ValueError`` when the
+extractor is made; the reference's extractor accepts one and fails with a
+``KeyError`` at its first forward.
 
 On the card the forward norms through the RMSNorm kernel, which has no
 backward yet: call it without grad there (training a zoo extractor on the
@@ -27,6 +33,11 @@ from repro_torch.models.model_zoo import build_model, make_backbone
 class ZooExtractor(nn.Module):
     def __init__(self, cfg: ArchConfig, rep_dim: int = 64, device=None) -> None:
         super().__init__()
+        if cfg.family == "audio":
+            raise ValueError(
+                f"{cfg.name}: the zoo extractor passes tokens only, and the audio family's "
+                "forward needs frame embeddings (batch['embeds']) for its encoder"
+            )
         self.rep_dim = rep_dim
         self.model = build_model(cfg)
         self.backbone = make_backbone(cfg, device)

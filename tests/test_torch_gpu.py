@@ -1059,7 +1059,9 @@ def _family_model(name, cuda):
     return cfg, model, params
 
 
-@pytest.mark.parametrize("name", sorted(chip_smoke.ZOO_SMALL_LAUNCHES))
+@pytest.mark.parametrize(  # the last families: test_reduced_last_zoo_family_...
+    "name", sorted(set(chip_smoke.ZOO_SMALL_LAUNCHES) - set(chip_smoke.ZOO_LAST))
+)
 def test_reduced_zoo_family_on_the_card_matches_the_cpu(name, cuda):
     """Eight decode steps and a prefill of the reduced config (f32
     activations, f32 cache) on the card and on the CPU from the same
@@ -1115,3 +1117,109 @@ def test_moe_apply_on_the_card_keeps_the_cpus_slots(case, cuda):
     assert torch.equal(keep_c.cpu(), keep_h) and torch.equal(dest_c.cpu(), dest_h)
     assert bool(keep_h.all()) == (case == "decode")
     assert chip_smoke._rel(got.cpu(), want) <= 1e-5
+
+
+# ------------------------------- the zoo's MLA, vlm, audio and the window --
+def _ring_positions(b, s, window, rng, device, stale_share=1 / 3):
+    """An S-slot ring at ragged query positions (past 2S: wrapped twice),
+    each slot holding the last position it took or (``stale_share`` of
+    them, never the query's own) the one a turn before; the window's term
+    masks the stale ones where ``window`` <= S."""
+    q_pos = rng.integers(2 * s, 3 * s, b)
+    slot = np.arange(s)
+    last = q_pos[:, None] - (q_pos[:, None] - slot) % s
+    stale = rng.random((b, s)) < stale_share
+    stale[np.arange(b), q_pos % s] = False
+    key_pos = last - s * stale + 1
+    return (torch.from_numpy(a.astype(np.int32)).to(device) for a in (key_pos, q_pos))
+
+
+@pytest.mark.parametrize(
+    "shape, window",
+    [
+        ((4, 24, 8, 16, 128), 16),  # phi4-mini's 16-slot ring under a window of 16
+        ((4, 24, 8, 16, 128), 5),  # a window inside the ring
+        ((2, 16, 16, 48, 64), 20),  # seamless's self-attention (G = 1)
+        ((2, 64, 8, 4096, 128), 1000),  # qwen2-vl's G = 8, several key ranges
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_window_on_a_wrapped_ring(shape, window, dtype, cuda):
+    b, h, hkv, s, dh = shape
+    rng = np.random.default_rng(21)
+    q = torch.from_numpy(rng.standard_normal((b, h, dh)).astype(np.float32)).to(cuda)
+    k, v = (_zoo_cache(b, s, hkv, dh, dtype, cuda, seed) for seed in (22, 23))
+    key_pos, q_pos = _ring_positions(b, s, window, rng, cuda)
+    before = dops.LAUNCHES
+    got = dops.decode_attention(q, k, v, key_pos=key_pos, q_pos=q_pos, window=window)
+    torch.cuda.synchronize()
+    assert dops.LAUNCHES == before + 1
+    want = _decode64(q, k, v, None, key_pos, q_pos, window).float()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    unwindowed = _decode64(q, k, v, None, key_pos, q_pos).float()
+    if window <= s:  # the window's term masked some slot: the output moved
+        assert (unwindowed - want).abs().max() > 1e-3
+
+
+def test_decode_attention_refuses_a_window_without_positions_or_below_one(cuda):
+    q, k = torch.zeros(2, 4, 16, device=cuda), torch.zeros(2, 2, 8, 16, device=cuda)
+    pos = torch.ones(2, 8, dtype=torch.int32, device=cuda)
+    qpos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = dops.LAUNCHES
+    with pytest.raises(ValueError, match="key_pos"):
+        dops.decode_attention(q, k, k, window=4)
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="window must be"):
+            dops.decode_attention(q, k, k, key_pos=pos, q_pos=qpos, window=bad)
+    assert dops.LAUNCHES == before
+
+
+def _last_family_cases():
+    cases = [(name, None) for name in chip_smoke.ZOO_LAST]
+    return cases + [(chip_smoke.ZOO_ARCH, chip_smoke.ZOO_SMALL_WINDOW)]
+
+
+@pytest.mark.parametrize("name, window", _last_family_cases())
+def test_reduced_last_zoo_family_on_the_card_matches_the_cpu(name, window, cuda):
+    """Eight decode steps and a prefill of the reduced deepseek-v2 (MLA),
+    qwen2-vl (M-RoPE, with patch embeds at prefill), seamless (enc_out
+    encoded from the same frames on each device) and windowed phi4-mini (a
+    4-slot ring wrapped once) on the card and on the CPU from the same
+    weights: logits within 1e-4 of their scale, and exactly the config's
+    RMSNorm and decode-attention launches a step."""
+    want_rms, want_dec = chip_smoke.ZOO_SMALL_LAUNCHES[name]
+    cfg = chip_smoke._zoo_cfg(name, reduced=True)
+    model = build_model(cfg, window_override=window)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    host = copy.deepcopy(params).cpu()
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))
+    toks = toks.to(torch.int32)
+    extra = {}
+    if cfg.family in ("vlm", "audio"):
+        extra["embeds"] = chip_smoke._frames(cfg, 2, 5).cpu()
+    caches = {}
+    for dev, p in ((cuda, params), ("cpu", host)):
+        caches[dev] = chip_smoke._f32_cache(zeros_like_spec(model.cache_shapes(2, 8), dev))
+        if cfg.family == "audio":
+            with torch.no_grad():
+                frames = extra["embeds"].to(dev)
+                caches[dev]["enc_out"] = chip_smoke.model_zoo._encode(p, cfg, frames)
+    for t in range(8):
+        outs = {}
+        for dev, p in ((cuda, params), ("cpu", host)):
+            batch = {"token": toks[:, t : t + 1].to(dev), "pos": torch.full((2, 1), t).int().to(dev)}
+            rops.LAUNCHES = dops.LAUNCHES = 0
+            outs[dev], caches[dev] = model.decode_fn(p, caches[dev], batch)
+            torch.cuda.synchronize()
+            if dev == cuda:
+                assert (rops.LAUNCHES, dops.LAUNCHES) == (want_rms, want_dec)
+        assert chip_smoke._rel(outs[cuda].cpu(), outs["cpu"]) <= 1e-4, t
+    for k in ("pos", "index"):
+        assert torch.equal(caches[cuda]["blocks"][k].cpu(), caches["cpu"]["blocks"][k])
+    rops.LAUNCHES = dops.LAUNCHES = 0
+    on_card = {k: v.to(cuda) for k, v in extra.items()}
+    got = model.prefill_fn(params, {"tokens": toks.to(cuda), **on_card})
+    torch.cuda.synchronize()
+    assert (rops.LAUNCHES, dops.LAUNCHES) == (want_rms + chip_smoke.encoder_norms(cfg), 0)
+    want = model.prefill_fn(host, {"tokens": toks, **extra})
+    assert chip_smoke._rel(got.cpu(), want) <= 1e-4

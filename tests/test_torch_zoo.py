@@ -8,7 +8,8 @@ tokens are numpy draws. With ``activation_dtype="float32"`` both sides run
 the same f32 arithmetic in different orders: 1e-5 of the outputs' scale.
 
 The ``family_*`` helpers at the end hold any family's reduced model to the
-reference the same way; ``test_torch_zoo_{moe,ssm,hybrid}.py`` call them.
+reference the same way; ``test_torch_zoo_{moe,ssm,hybrid,mla,vlm,audio,window}.py``
+call them.
 """
 
 import dataclasses
@@ -116,19 +117,6 @@ def test_input_specs_match_the_reference(shape):
 @pytest.mark.parametrize("name", ["gemma-7b", "phi4-mini-3.8b", "qwen1.5-32b", "llama3-405b"])
 def test_cache_shapes_match_the_reference(name):
     family_cache_shapes(name)
-
-
-@pytest.mark.parametrize(
-    "name", ["deepseek-v2-236b", "qwen2-vl-72b", "seamless-m4t-large-v2"]
-)
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #14"):
-        model_zoo.build_model(get_config(name).reduced())
-
-
-def test_sliding_window_raises():
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        model_zoo.build_model(get_config("gemma-7b").reduced(), window_override=4)
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
@@ -312,13 +300,14 @@ def test_serve_cli_raises_without_a_card():
 # ------------------------------------------------- any family's reduced model --
 def family_cfgs(name, act="float32", **changes):
     """The reference's and the port's reduced config of ``name``, with
-    ``changes`` (e.g. ``capacity_factor``, ``chunk``, ``num_layers``) applied
-    to both; the MoE and SSM sub-configs take theirs by field name."""
+    ``changes`` (e.g. ``capacity_factor``, ``chunk``, ``q_lora_rank``,
+    ``num_layers``) applied to both; the MoE, SSM and MLA sub-configs take
+    theirs by field name."""
     out = []
     for get in (jx_get_config, get_config):
         cfg = dataclasses.replace(get(name).reduced(), activation_dtype=act)
         top = {k: v for k, v in changes.items() if hasattr(cfg, k)}
-        for sub in ("moe", "ssm"):
+        for sub in ("moe", "ssm", "mla"):
             part = getattr(cfg, sub)
             mine = {k: v for k, v in changes.items() if part is not None and hasattr(part, k)}
             if mine:
@@ -339,11 +328,13 @@ def load_module(module, tree):
     return module
 
 
-def family_setup(name, act="float32", seed=1, **changes):
+def family_setup(name, act="float32", seed=1, window=None, **changes):
     """(jcfg, tcfg, jmodel, tmodel, jparams, tparams): the reference's
-    pytree redrawn with numpy and carried into the port."""
+    pytree redrawn with numpy and carried into the port; ``window`` is both
+    models' ``window_override``."""
     jcfg, tcfg = family_cfgs(name, act, **changes)
-    jmodel, tmodel = jx_zoo.build_model(jcfg), model_zoo.build_model(tcfg)
+    jmodel = jx_zoo.build_model(jcfg, window_override=window)
+    tmodel = model_zoo.build_model(tcfg, window_override=window)
     tree = _numpy_tree(jmodel.init(jax.random.PRNGKey(0)), seed=seed)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     tparams = bridge.zoo_params_from_reference(tree, tcfg, device="cpu")
@@ -360,27 +351,43 @@ def _leaves(tree, prefix=()):
     return out
 
 
-def family_prefill_and_hidden(setup):
+def family_prefill_and_hidden(setup, extra=None):
+    """``prefill_fn`` and ``hidden_fn`` against the reference's; ``extra``:
+    numpy arrays added to the batch (a vlm's or an audio model's
+    ``embeds``)."""
     _, tcfg, jmodel, tmodel, jparams, tparams = setup
     toks = _tokens(tcfg, shape=(B, S))
-    want = jmodel.prefill_fn(jparams, {"tokens": jnp.asarray(toks)})
-    got = make_prefill_step(tmodel)(tparams, {"tokens": torch.from_numpy(toks)})
+    arrays = {"tokens": toks, **(extra or {})}
+    jbatch = {k: jnp.asarray(v) for k, v in arrays.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in arrays.items()}
+    want = jmodel.prefill_fn(jparams, jbatch)
+    got = make_prefill_step(tmodel)(tparams, tbatch)
     assert got.shape == (B, tcfg.vocab_size) and _rel(got, want) < RTOL
-    want_h = jmodel.hidden_fn(jparams, {"tokens": jnp.asarray(toks)})
+    want_h = jmodel.hidden_fn(jparams, jbatch)
     with torch.no_grad():
-        got_h = tmodel.hidden_fn(tparams, {"tokens": torch.from_numpy(toks)})
+        got_h = tmodel.hidden_fn(tparams, tbatch)
     assert _rel(got_h, want_h) < RTOL
 
 
-def family_decode_steps(setup, seed=3):
-    """Every decode step's logits, then every leaf of the cache, against the
-    reference's decode with the f32-cast cache: floats within RTOL of their
-    scale, positions and write indices equal."""
+def _set_leaves(jcache, tcache, leaves):
+    """Put ``leaves`` {name: (numpy array, dtype name)} into both caches."""
+    for name, (a, dtype) in (leaves or {}).items():
+        jcache[name] = jnp.asarray(a).astype(dtype)
+        tcache[name] = torch.from_numpy(np.array(a)).to(getattr(torch, dtype))
+
+
+def family_decode_steps(setup, seed=3, steps=S, cache_len=None, leaves=None):
+    """``steps`` decode steps' logits, then every leaf of the cache, against
+    the reference's decode with the f32-cast cache (of ``cache_len`` slots,
+    ``steps`` by default; ``leaves`` put in after the cast, e.g. an audio
+    model's ``enc_out``): floats within RTOL of their scale, positions and
+    write indices equal."""
     _, tcfg, jmodel, tmodel, jparams, tparams = setup
-    b, s = B, S
+    b, s = B, steps
     toks = _tokens(tcfg, seed=seed, shape=(b, s))
-    jcache = _f32_caches(jx_specs.zeros_like_spec(jmodel.cache_shapes(b, s)))
-    tcache = _f32_caches(specs.zeros_like_spec(tmodel.cache_shapes(b, s), "cpu"))
+    jcache = _f32_caches(jx_specs.zeros_like_spec(jmodel.cache_shapes(b, cache_len or s)))
+    tcache = _f32_caches(specs.zeros_like_spec(tmodel.cache_shapes(b, cache_len or s), "cpu"))
+    _set_leaves(jcache, tcache, leaves)
     jdecode = jax.jit(jmodel.decode_fn)
     for t in range(s):
         batch = {"token": toks[:, t : t + 1], "pos": np.full((b, 1), t, np.int32)}
@@ -395,26 +402,33 @@ def family_decode_steps(setup, seed=3):
         if np.issubdtype(np.asarray(want).dtype, np.integer):
             np.testing.assert_array_equal(mine[path].numpy(), np.asarray(want))
         else:
+            assert mine[path].dtype == getattr(torch, str(want.dtype)), path
             assert _rel(mine[path], want) < RTOL, path
+    return tcache
 
 
-def family_prefill_equals_sequential_decode(setup, seed=5):
-    """The port against itself in f32 with the f32-cast cache: the
-    full-sequence forward and the decode path give the same logits."""
+def family_prefill_equals_sequential_decode(setup, seed=5, steps=S, cache_len=None, fill=None):
+    """The port against itself in f32 with the f32-cast cache (of
+    ``cache_len`` slots, ``steps`` by default): the full-sequence forward
+    over ``steps`` tokens and the decode path give the same last logits.
+    ``fill(tmodel, tparams, cache)`` returns the prefill's extra batch
+    entries after filling what the decode reads from the cache (an audio
+    model's ``enc_out``)."""
     _, tcfg, _, tmodel, _, tparams = setup
-    toks = torch.from_numpy(_tokens(tcfg, seed=seed, shape=(B, S)))
-    full = tmodel.prefill_fn(tparams, {"tokens": toks})
-    cache = _f32_caches(specs.zeros_like_spec(tmodel.cache_shapes(B, S), "cpu"))
+    toks = torch.from_numpy(_tokens(tcfg, seed=seed, shape=(B, steps)))
+    cache = _f32_caches(specs.zeros_like_spec(tmodel.cache_shapes(B, cache_len or steps), "cpu"))
+    extra = fill(tmodel, tparams, cache) if fill else {}
+    full = tmodel.prefill_fn(tparams, {"tokens": toks, **extra})
     logits, _ = serve.prefill(tmodel.decode_fn, tparams, cache, toks)
     assert _rel(logits, full.numpy()) < 2e-5
 
 
-def family_cache_shapes(name, **changes):
+def family_cache_shapes(name, window=None, **changes):
     """The decode cache's spec tree equals the reference's, leaf for leaf."""
     jcfg, tcfg = family_cfgs(name, "bfloat16", **changes)
     for batch, cache_len in ((3, 11), (4, 48)):
-        mine = _leaves(model_zoo.build_model(tcfg).cache_shapes(batch, cache_len))
-        ref = _leaves(jx_zoo.build_model(jcfg).cache_shapes(batch, cache_len))
+        mine = _leaves(model_zoo.build_model(tcfg, window).cache_shapes(batch, cache_len))
+        ref = _leaves(jx_zoo.build_model(jcfg, window).cache_shapes(batch, cache_len))
         assert sorted(mine) == sorted(ref)
         for path, want in ref.items():
             assert mine[path].shape == want.shape, path
@@ -449,11 +463,12 @@ def family_bridge_round_trip(setup, drop):
         np.testing.assert_array_equal(a, b)
 
 
-def family_init_rule(name):
+def family_init_rule(name, **changes):
     """A built model's init by the reference's name rules: ``A_log`` 0 on
     every stacked block (as the reference's init gives it), ``dt_bias`` and
-    ``conv_bias`` 0, scales 1, ``D`` and the weights N(0, 0.02²)."""
-    jcfg, tcfg = family_cfgs(name, "bfloat16")
+    ``conv_bias`` 0, scales 1, ``D``, the weights and ``b_q`` / ``b_k`` /
+    ``b_v`` (no ``bias`` in their names) N(0, 0.02²)."""
+    jcfg, tcfg = family_cfgs(name, "bfloat16", **changes)
     ref = _leaves(jx_zoo.build_model(jcfg).init(jax.random.PRNGKey(0)))
     mine = _leaves(bridge.zoo_params_to_reference(
         model_zoo.build_model(tcfg).init(torch.Generator().manual_seed(0))

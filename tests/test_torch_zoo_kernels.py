@@ -203,8 +203,8 @@ def test_decode_step_passes_stored_positions_and_no_lengths(monkeypatch):
     b, h, hkv, s, dh = 2, 4, 2, 6, 8
     seen = {}
 
-    def record(q, k_cache, v_cache, lengths=None, key_pos=None, q_pos=None):
-        seen.update(lengths=lengths, key_pos=key_pos.clone(), q_pos=q_pos.clone())
+    def record(q, k_cache, v_cache, lengths=None, key_pos=None, q_pos=None, window=None):
+        seen.update(lengths=lengths, key_pos=key_pos.clone(), q_pos=q_pos.clone(), window=window)
         return torch.zeros(q.shape)
 
     monkeypatch.setattr(layers.decode_ops, "decode_attention", record)
@@ -219,7 +219,7 @@ def test_decode_step_passes_stored_positions_and_no_lengths(monkeypatch):
         torch.zeros(b, 1, h, dh), torch.ones(b, 1, hkv, dh), torch.ones(b, 1, hkv, dh),
         positions, cache,
     )
-    assert out.shape == (b, 1, h, dh) and seen["lengths"] is None
+    assert out.shape == (b, 1, h, dh) and seen["lengths"] is None and seen["window"] is None
     assert seen["key_pos"].tolist() == [[5, 4, 0, 0, 0, 0], [2, 1, 0, 0, 0, 0]]
     assert seen["q_pos"].tolist() == [3, 0] and int(cache["index"]) == 2
 
