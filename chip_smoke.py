@@ -5,8 +5,8 @@
 Drives ``repro_torch`` (never JAX, never the reference package) through its
 paths: training (one-shot, few-shot, the iterative baselines, few-shot +
 finetune, fault injection, the seed and scenario folds, and the scenario
-catalog), serving, and
-model-zoo serving. Phases, each of
+catalog), serving,
+model-zoo serving and model-zoo training. Phases, each of
 which fails the run (nonzero exit, no result line) if it goes wrong:
 
 1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
@@ -160,7 +160,29 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    0 (MLA decodes absorbed, in plain torch), qwen2-vl 9 and 4, seamless 73
    and 24, windowed phi4 65 and 32; a ``prefill_fn`` the same RMSNorm count
    and no decode attention, but seamless's 122 (its encoder's 49 more, as
-   each serve run's ``enc_out``).
+   each serve run's ``enc_out``);
+16. zoo training (the fifth path): ``mamba2-370m`` at full width and depth
+   and ``phi4-mini-3.8b`` at full width over 4 of its 32 layers train on
+   one fixed batch of 8 × 128 tokens through ``launch/steps``'
+   ``make_train_step`` (clip 1.0 + Adam, remat): one warm-up step and 6
+   timed ones (the loss of each, p50 / p99 ms a step, tokens/s, peak
+   memory, model FLOPs from ``roofline.model_flops`` and TFLOP/s), the
+   losses finite and the last below the first, and the RMSNorm forward
+   and backward launches of every step exact (193 / 97 and 17 / 9); then a
+   2-layer reduced variant of each trains 3 steps on the card and the CPU
+   from the same weights and batch: first-step gradients per leaf and
+   every loss within 1e-4;
+17. a zoo backbone in Alg. 1 (the sixth path): the reference's
+   ``test_zoo_backbone_extractor_in_protocol`` on the port's own sequence
+   data on the card (``ZooExtractorSpec``, token SSL): accuracy > 0.4,
+   24576 bytes (the reference's ledger of that split) in 3 comm times,
+   27 k-means launches and the RMSNorm kernel launched both ways.
+
+The RMSNorm backward has ``[kernel] rmsnorm_backward`` rows at the
+training path's shapes (1024 rows at d 1024 and 3072 in bf16 and 2048 in
+f32; the zoo extractor's 512 × 256 bf16; a ragged 231 × 130), held to a
+float64 plain version and run twice for equal bits, with its plain and
+library (``autograd.grad`` of ``F.rms_norm``) times.
 
 The RMSNorm and decode-attention ``[kernel]`` rows include the families'
 shapes (d 1536, 1024, 2048, 5120 and 8192 in bf16, the gated norm's 2048
@@ -170,7 +192,7 @@ every row is also held against a float64 plain version.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
 5-6, then 7-8, then 9, then 9a, then 9b, then 9c, then 10-11a, then 13,
-then 15) and read just after. Output ends
+then 15, then 16, then 17) and read just after. Output ends
 with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -189,6 +211,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -203,6 +226,7 @@ from repro_torch.checkpoint import (  # noqa: E402
     save_artifact,
 )
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core import baselines, estimator  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
     KMEANS_RESTARTS,
@@ -214,7 +238,8 @@ from repro_torch.core.protocol import (  # noqa: E402
     run_seeds,
 )
 from repro_torch.core.server import VFLServer  # noqa: E402
-from repro_torch.data import VerticalSplit  # noqa: E402
+from repro_torch.core.ssl import SSLConfig  # noqa: E402
+from repro_torch.data import VerticalSplit, make_sequence_classification, make_token_stream  # noqa: E402
 from repro_torch.engine import dispatch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
@@ -226,18 +251,19 @@ from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
+from repro_torch.launch.steps import make_optimizer, make_train_step  # noqa: E402
 from repro_torch.launch.vfl_serve import ServingEngine, serve_traffic, serving_path  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models import moe as zoo_moe  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
-from repro_torch.models.zoo_extractor import make_zoo_extractor  # noqa: E402
+from repro_torch.models.zoo_extractor import ZooExtractorSpec, make_zoo_extractor  # noqa: E402
+from repro_torch.roofline import HW, model_flops  # noqa: E402
 
 SEED = 0
 N_O = 2048  # overlap rows: the Eq. 10 keys/values
 CAPACITY = 1024
-H100_F32_FLOPS = 67e12  # FMA = 2 FLOP, outside the tensor cores (NVIDIA data sheet, SXM)
-H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores (NVIDIA data sheet, SXM)
-H100_BYTES_PER_S = 3.35e12
+# the H100's rates behind every bound (repro_torch.roofline.HW)
+H100_F32_FLOPS, H100_TF32_FLOPS, H100_BYTES_PER_S = HW.f32_flops, HW.tf32_flops, HW.hbm_bw
 # Kernel vs plain version: both sum in f32 in different orders (d-long dots,
 # N_o-long softmax sums); outputs are convex combinations of O(1) value rows,
 # so their rounding differences stay a few 1e-6. 1e-4 leaves margin and still
@@ -612,6 +638,51 @@ ZOO_SMALL_LAUNCHES = {
     "qwen2-vl-72b": (5, 2),
     "seamless-m4t-large-v2": (7, 2),
 }
+# The RMSNorm backward's shapes (rows, d, x dtype; scale f32 as the zoo
+# passes it): a [zoo-train] step's 1024 rows (batch 8 x seq 128) at
+# mamba2-370m's block and final norms (d 1024, bf16), its gated norms
+# (d_inner 2048, f32) and phi4-mini's norms (d 3072, bf16); the [zoo-vfl]
+# extractor's strong view of an unlabeled SSL batch (64 rows x 8 tokens at
+# d 256, bf16); a ragged odd shape. dx within 1e-5 of its largest entry in
+# f32, one bf16 step (plus that) in bf16; dscale within 1e-5 of its largest
+# entry; both against float64.
+RMS_BWD_SHAPES = [
+    (1024, 1024, torch.bfloat16),
+    (1024, 2048, torch.float32),
+    (1024, 3072, torch.bfloat16),
+    (512, 256, torch.bfloat16),
+    (231, 130, torch.float32),
+]
+RMS_BWD_TOL = 1e-5
+# [zoo-train]: mamba2-370m at full width and depth (launch/train.py's own
+# default) and phi4-mini at full width over 4 of its 32 layers (its Adam
+# state alone would take ~61 GB of the 80 at full depth); batch 8, seq 128,
+# clip 1.0 + Adam at 3e-4 (launch/train.py's default), remat on; one
+# warm-up step, then TRAIN_STEPS timed steps on one fixed batch. phi4-mini's
+# fixed-batch loss swings over its first steps at 3e-4 (Adam moves every
+# weight of its 200064-row tied table by about lr at once): its seventh
+# loss is above its first, and from the ninth on every loss is below;
+# torch.optim.Adam, f32 activations and the plain norms trace the same
+# curve (benchmarks/torch_zoo_train_lr.py, PERF.md section 4). Launches a
+# step (RMSNorm forward, backward): each norm once forward and once
+# backward, plus each block's norms again in the backward's re-run of its
+# checkpointed forward.
+TRAIN_ARCHS = ("mamba2-370m", ZOO_ARCH)
+TRAIN_DEPTH = {ZOO_ARCH: 4}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 11
+TRAIN_LR = 3e-4
+TRAIN_SMALL_STEPS = 3
+TRAIN_PARAMS = {"mamba2-370m": 419_825_152, ZOO_ARCH: 614_596_608 + 4 * 100_669_440 + 3_072}
+TRAIN_LAUNCHES = {"mamba2-370m": (97 + 96, 97), ZOO_ARCH: (9 + 8, 9)}
+# [zoo-vfl]: the reference's test_zoo_backbone_extractor_in_protocol on the
+# port's own data: 400 rows of 16 tokens over a vocabulary of 32, 3
+# classes, split as that test splits it; reduced phi4 (vocab 32, 2 layers)
+# as both parties' extractor, rep_dim 16, token SSL, one-shot at 3 client
+# and 10 server epochs, client lr 0.02. The bar is the test's (chance 1/3);
+# the bytes are the reference's run of that split (24576: 4096 a party in
+# each of the three rounds), which tests/test_torch_zoo_vfl.py pins.
+ZOO_VFL_BAR = 0.4
+ZOO_VFL_BYTES = 24576
 # prefill ≡ sequential decode at full width in f32 activations, TF32 off: the
 # blocked-scan prefill and the decode kernel sum in different orders; logits
 # relative to their scale (the reference's own test holds 2e-5 at 2 layers).
@@ -671,13 +742,15 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+def device_ms(fn, iters: int = 50, warmup: int = 3, stream=None) -> float:
     """Mean device time of ``fn()``: ``iters`` back-to-back calls captured
     into one CUDA graph after ``warmup`` calls on a side stream, the graph
     replayed between two events. At small shapes the event timer of
     :func:`time_ms` reads the host's enqueue rate; a replay has no host in
-    the way. A call that cannot be captured fails the run."""
-    side = torch.cuda.Stream()
+    the way. ``stream`` is the side stream, and the capture's, when ``fn``
+    must run on one given stream: autograd runs a backward on the stream
+    of its forward. A call that cannot be captured fails the run."""
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(warmup):
@@ -685,7 +758,7 @@ def device_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=stream):
             for _ in range(iters):
                 fn()
     except RuntimeError as e:
@@ -2729,6 +2802,300 @@ def phase_zoo(line: str) -> dict:
     return totals
 
 
+def _bwd_oracle64(x, scale, dy, eps: float = 1e-6):
+    """dx and dscale of the RMSNorm in float64."""
+    xd, sd, gd = x.double(), scale.double(), dy.double()
+    r = torch.rsqrt(xd.square().mean(-1, keepdim=True) + eps)
+    g = sd * gd
+    dx = r * g - xd * r**3 * (xd * g).mean(-1, keepdim=True)
+    return dx, (gd * xd * r).sum(0)
+
+
+def bwd_dx_bound(want_dx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The per-element bound on a backward's dx against float64: 1e-5 of
+    the largest entry, plus one bf16 step at the value in bf16."""
+    bound = RMS_BWD_TOL * want_dx.abs().max()
+    if dtype == torch.bfloat16:
+        bound = bound + torch.exp2(torch.floor(torch.log2(want_dx.abs().clamp_min(2.0**-126))) - 7)
+    return bound
+
+
+def phase_rmsnorm_backward(gen) -> dict:
+    """The RMSNorm backward kernel vs its plain version and float64, timed
+    with events and from a CUDA graph, beside the plain backward and the
+    library's backward alone (``torch.autograd.grad`` of ``F.rms_norm`` on
+    the same f32 scale)."""
+    rows_out = []
+    for rows, d, dtype in RMS_BWD_SHAPES:
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+        scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        dy = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+        dx, ds = rops.rms_norm_backward(x, scale, dy)
+        pdx, pds = rref.rms_norm_backward(x, scale, dy)
+        dx2, ds2 = rops.rms_norm_backward(x, scale, dy)
+        torch.cuda.synchronize()
+        check(dx.dtype == dtype and ds.dtype == scale.dtype, f"rmsnorm backward dtypes at {rows, d}")
+        same = torch.equal(dx, dx2) and torch.equal(ds, ds2)
+        check(same, f"rmsnorm backward not deterministic at {rows, d}")
+        want_dx, want_ds = _bwd_oracle64(x, scale, dy)
+        err = (dx.double() - want_dx).abs()
+        used = (err / bwd_dx_bound(want_dx, dtype)).max().item()
+        dx_text = f"{err.max().item() / want_dx.abs().max().item():.2e} of max|dx|"
+        err_ds = (ds.double() - want_ds).abs().max().item() / want_ds.abs().max().item()
+        check(used <= 1.0, f"rmsnorm backward {rows, d, dtype}: dx at {used:.2f} of its bound vs f64")
+        check(err_ds <= RMS_BWD_TOL, f"rmsnorm backward {rows, d, dtype}: dscale off by {err_ds:.2e}")
+        plain_err = max(
+            (dx.float() - pdx.float()).abs().max().item(), (ds - pds).abs().max().item()
+        )
+        # the library's forward on a stream of its own, where the graph is
+        # captured: its backward runs there (on the default stream, the
+        # capture refuses it)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        lx, ls = x.clone().requires_grad_(True), scale.clone().requires_grad_(True)
+        with torch.cuda.stream(side):
+            ly = F.rms_norm(lx, (d,), ls, 1e-6)
+        torch.cuda.current_stream().wait_stream(side)
+
+        def library():
+            return torch.autograd.grad(ly, (lx, ls), dy, retain_graph=True)
+
+        row = {
+            "shape": [rows, d, str(dtype).split(".")[-1]],
+            "max_abs_err": plain_err,
+            "ms": time_ms(lambda: rops.rms_norm_backward(x, scale, dy)),
+            "plain_ms": time_ms(lambda: rref.rms_norm_backward(x, scale, dy)),
+            "library_ms": time_ms(library),
+            "device_ms": device_ms(lambda: rops.rms_norm_backward(x, scale, dy)),
+            "library_device_ms": device_ms(library, stream=side),
+        }
+        # x and dy read, dx written; scale read, dscale written; about 12
+        # f32 operations an element (the two row sums, dx, dscale's term)
+        nbytes = 3 * rows * d * x.element_size() + 2 * 4 * d
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 12 * rows * d / H100_F32_FLOPS
+        row["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        row["bound_by"] = "bytes" if t_bytes > t_ops else "operations"
+        rows_out.append(row)
+        times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
+        print(
+            f"[kernel] rmsnorm_backward rows={rows} d={d} {row['shape'][2]} (scale f32): dx vs "
+            f"f64 {dx_text} ({used:.2f} of its bound), dscale vs f64 {err_ds:.2e} of max, vs "
+            f"plain {plain_err:.3e}, two runs bit-equal | {times} | bound "
+            f"{row['bound_ms']:.3e} ms ({row['bound_by']})"
+        )
+        del lx, ls, ly
+    return rows_out[0]  # mamba2-370m's block norm: 49 of a [zoo-train] step's 97
+
+
+def _pct(values, q: float) -> float:
+    return torch.quantile(torch.tensor(values, dtype=torch.float64), q).item()
+
+
+def _train_cfg(name: str, reduced: bool):
+    """The [zoo-train] config: full width (TRAIN_DEPTH layers where set), or
+    the 2-layer reduced variant in f32 activations (_zoo_cfg)."""
+    if reduced:
+        return _zoo_cfg(name, reduced=True)
+    cfg = get_config(name)
+    if name in TRAIN_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_DEPTH[name])
+    return cfg
+
+
+def _leaf_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a − b| at its largest over b's largest magnitude."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def phase_zoo_train_small(name: str) -> str:
+    """The 2-layer reduced variant (f32 activations) trained TRAIN_SMALL_STEPS
+    steps on the card and on the CPU from the same parameters and batch: the
+    first step's gradients per leaf and every step's loss within
+    ZOO_RTOL."""
+    cfg = _train_cfg(name, reduced=True)
+    model = build_model(cfg)
+    params = {"cuda": model.init(torch.Generator(device="cuda").manual_seed(SEED))}
+    params["cpu"] = copy.deepcopy(params["cuda"]).cpu()
+    tokens, labels = make_token_stream(
+        torch.Generator(device="cuda").manual_seed(SEED + 5), 4, 32, cfg.vocab_size
+    )
+    grads, losses = {}, {}
+    for dev, p in params.items():
+        batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+        grads[dev] = torch.autograd.grad(model.loss_fn(p, batch), list(p.parameters()))
+        tx = make_optimizer(cfg, TRAIN_LR)
+        opt, step = tx.init(list(p.parameters())), make_train_step(model, tx)
+        losses[dev] = [float(step(p, opt, batch)) for _ in range(TRAIN_SMALL_STEPS)]
+    grad_rel = max(_leaf_rel(c.cpu(), g) for c, g in zip(grads["cuda"], grads["cpu"]))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    what = f"[zoo-train] reduced {name} ({cfg.num_layers} layers, d {cfg.d_model}, f32)"
+    check(grad_rel <= ZOO_RTOL, f"{what}: card vs CPU first-step gradients differ by {grad_rel}")
+    check(loss_rel <= ZOO_RTOL, f"{what}: card vs CPU losses {losses}")
+    del params, grads
+    torch.cuda.empty_cache()
+    return (
+        f"{what}: card vs CPU first-step gradients max rel diff per leaf {grad_rel:.2e}, "
+        f"{TRAIN_SMALL_STEPS}-step losses {[round(v, 5) for v in losses['cuda']]} max rel diff "
+        f"{loss_rel:.2e}"
+    )
+
+
+def phase_zoo_train_full(name: str, line: str) -> dict:
+    """One full-width train run (TRAIN_STEPS + 1 steps on one fixed batch):
+    the loss of every step, p50 / p99 ms a step on the host clock
+    (synchronized), tokens/s, peak memory, model FLOPs a step and TFLOP/s,
+    and the RMSNorm forward and backward launches of every step, exact.
+    Returns the run's launch counts."""
+    cfg = _train_cfg(name, reduced=False)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == TRAIN_PARAMS[name], f"[zoo-train] {name}: {n_params} parameters")
+    tokens, labels = make_token_stream(gen, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+    batch = {"tokens": tokens, "labels": labels}
+    tx = make_optimizer(cfg, TRAIN_LR)
+    opt = tx.init(list(params.parameters()))
+    step = make_train_step(model, tx)
+    want_fwd, want_bwd = TRAIN_LAUNCHES[name]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    fwd = bwd = 0
+    for i in range(TRAIN_STEPS + 1):
+        f0, b0 = rops.LAUNCHES, rops.BACKWARD_LAUNCHES
+        t0 = time.perf_counter()
+        loss = step(params, opt, batch)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        got = (rops.LAUNCHES - f0, rops.BACKWARD_LAUNCHES - b0)
+        check(got == (want_fwd, want_bwd), f"[zoo-train] {name} step {i}: rmsnorm launches {got}")
+        fwd, bwd = fwd + got[0], bwd + got[1]
+        losses.append(float(loss))
+        if i:
+            ms.append(dt)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(v) for v in losses), f"[zoo-train] {name}: losses {losses}")
+    check(losses[-1] < losses[0], f"[zoo-train] {name}: loss did not fall: {losses}")
+    flops = model_flops(cfg, InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    p50, p99 = _pct(ms, 0.5), _pct(ms, 0.99)
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3)
+    depth = f", {cfg.num_layers} of {get_config(name).num_layers} layers" if name in TRAIN_DEPTH else ""
+    print(
+        f"[zoo-train] {name} full width ({n_params} params{depth}, {cfg.activation_dtype} "
+        f"activations, remat {cfg.remat}), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, clip 1.0 + Adam "
+        f"lr {TRAIN_LR}: losses {[round(v, 4) for v in losses]} | p50 {p50:.2f} ms p99 {p99:.2f} "
+        f"ms a step over {TRAIN_STEPS} steps | {tokens_s:.0f} tokens/s | peak "
+        f"{peak:.2f} GiB | model FLOPs {flops:.4e} a step, {flops / (p50 / 1e3) / 1e12:.2f} "
+        f"TFLOP/s | rmsnorm launches a step {want_fwd} forward / {want_bwd} backward | {line}"
+    )
+    del params, opt, model
+    torch.cuda.empty_cache()
+    return {"rmsnorm": fwd, "rmsnorm_backward": bwd}
+
+
+def phase_zoo_vfl(line: str) -> dict:
+    """A reduced phi4 backbone as both parties' extractor in Alg. 1 one-shot
+    with token SSL, on the port's own sequence data on the card (see
+    ZOO_VFL_BAR); returns its launch counts."""
+    cfg = dataclasses.replace(get_config(ZOO_ARCH).reduced(), vocab_size=32, num_layers=2)
+    x, y = make_sequence_classification(
+        400, seed=SEED, device="cuda", seq_len=16, vocab_size=32, num_classes=3
+    )
+    xf = x.float()  # a split's features are float32, as split_from_numpy makes them
+    perm = np.random.RandomState(0).permutation(400)
+    test, over, rest = (torch.as_tensor(a, device="cuda") for a in (perm[:80], perm[80:144], perm[144:]))
+    pool = [torch.as_tensor(a, device="cuda") for a in np.array_split(rest.cpu().numpy(), 2)]
+    split = VerticalSplit(
+        aligned=[xf[over, :8], xf[over, 8:]],
+        labels=y[over],
+        unaligned=[xf[pool[0], :8], xf[pool[1], 8:]],
+        test_aligned=[xf[test, :8], xf[test, 8:]],
+        test_labels=y[test],
+        num_classes=3,
+    )
+    spec = ZooExtractorSpec(cfg, rep_dim=16)
+    t0 = time.time()
+    res = run_one_shot(
+        SEED, split, [spec] * 2, [SSLConfig(modality="token")] * 2,
+        ProtocolConfig(client_epochs=3, server_epochs=10, client_lr=0.02), device="cuda",
+    )
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    nbytes, times = res.ledger.total_bytes(), res.ledger.comm_times()
+    check(res.metric > ZOO_VFL_BAR, f"[zoo-vfl] metric {res.metric} not above {ZOO_VFL_BAR}")
+    check(times == 3, f"[zoo-vfl] {times} comm times")
+    check(nbytes == ZOO_VFL_BYTES, f"[zoo-vfl] {nbytes} bytes, not {ZOO_VFL_BYTES}")
+    counts = {
+        "rmsnorm": rops.LAUNCHES,
+        "rmsnorm_backward": rops.BACKWARD_LAUNCHES,
+        "kmeans": kops.LAUNCHES,
+    }
+    print(
+        f"[zoo-vfl] reduced {ZOO_ARCH} (vocab 32, 2 layers, d {cfg.d_model}) as both parties' "
+        f"extractor, token SSL, one-shot 3 / 10 epochs: {res.metric_name} {res.metric:.4f} "
+        f"(bar {ZOO_VFL_BAR}, chance 0.33) | {nbytes} bytes in {times} comm times | engine path "
+        f"{res.diagnostics.get('engine_path')} | {wall:.1f} s | rmsnorm launches "
+        f"{counts['rmsnorm']} forward / {counts['rmsnorm_backward']} backward, kmeans "
+        f"{counts['kmeans']} | {line}"
+    )
+    del res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_zoo_train(line: str) -> dict:
+    """[zoo-train]: each TRAIN_ARCHS config at full width, then its reduced
+    variant on the card and the CPU. Returns the full-width runs' RMSNorm
+    launches."""
+    totals = {"rmsnorm": 0, "rmsnorm_backward": 0}
+    for name in TRAIN_ARCHS:
+        got = phase_zoo_train_full(name, line)
+        totals = {k: totals[k] + got[k] for k in totals}
+        print(phase_zoo_train_small(name))
+    return totals
+
+
+def _zero_counters() -> None:
+    torch.cuda.synchronize()
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
+
+
+def run_training_paths(line: str) -> tuple:
+    """The zoo's training path and the zoo extractor in Alg. 1, each with the
+    counters from 0, read right after. Returns (train counts, vfl counts,
+    seconds of each)."""
+    _zero_counters()
+    t0 = time.time()
+    train = phase_zoo_train(line)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    small = (rops.LAUNCHES - train["rmsnorm"], rops.BACKWARD_LAUNCHES - train["rmsnorm_backward"])
+    check(ops.LAUNCHES == kops.LAUNCHES == dops.LAUNCHES == 0, "a VFL or decode kernel launched in [zoo-train]")
+    check(min(small) > 0, f"[zoo-train] the reduced card runs launched {small}")
+    train = {"rmsnorm": rops.LAUNCHES, "rmsnorm_backward": rops.BACKWARD_LAUNCHES}
+    print(
+        f"[path] zoo-train: rmsnorm launches {train['rmsnorm']} forward / "
+        f"{train['rmsnorm_backward']} backward (each full-width step exactly "
+        + ", ".join(f"{n} {f} / {b}" for n, (f, b) in TRAIN_LAUNCHES.items())
+        + f"; the reduced card runs {small[0]} / {small[1]}) in {train_s:.1f} s"
+    )
+    _zero_counters()
+    t0 = time.time()
+    vfl = phase_zoo_vfl(line)
+    torch.cuda.synchronize()
+    vfl_s = time.time() - t0
+    want_km = ProtocolConfig().kmeans_iters + 2
+    check(vfl["kmeans"] == want_km, f"[zoo-vfl] kmeans launched {vfl['kmeans']} times, not {want_km}")
+    check(vfl["rmsnorm"] > 0 and vfl["rmsnorm_backward"] > 0, f"[zoo-vfl] rmsnorm launches {vfl}")
+    check(ops.LAUNCHES == dops.LAUNCHES == 0, "sdpa_estimator or decode_attention launched in [zoo-vfl]")
+    print(
+        f"[path] zoo-vfl: rmsnorm launches {vfl['rmsnorm']} forward / {vfl['rmsnorm_backward']} "
+        f"backward, kmeans launches {vfl['kmeans']} (expected {want_km}: step ③) in {vfl_s:.1f} s"
+    )
+    return train, vfl, train_s, vfl_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this smoke run needs a GPU", file=sys.stderr)
@@ -2759,18 +3126,20 @@ def main() -> int:
     phase_kmeans_plans(gen)
     t0 = time.time()
     rms_row = phase_rmsnorm(gen)
+    rms_bwd_row = phase_rmsnorm_backward(gen)
     decode_row = phase_decode_attention(gen)
     phase_decode_plans(gen)
     zoo_kernels_s = time.time() - t0
 
     # ---- the training path: counters from 0, read right after
     torch.cuda.synchronize()
-    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     expected_km, one_shot_a, art_a = phase_one_shot_a(line)
     art_b, runs_b = phase_one_shot_b(line)
     expected_km += runs_b
     torch.cuda.synchronize()
     km_launches, sdpa_in_training = kops.LAUNCHES, ops.LAUNCHES
+    check(rops.BACKWARD_LAUNCHES == 0, "the RMSNorm backward launched in VFL training")
     check(
         km_launches == expected_km,
         f"kmeans launched {km_launches} times, expected {expected_km}",
@@ -2783,7 +3152,7 @@ def main() -> int:
     )
 
     # ---- the few-shot training path: counters from 0, read right after
-    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
     sdpa_a, km_a, few_shot_a_auc = phase_few_shot_a(line)
     torch.cuda.empty_cache()
@@ -2801,7 +3170,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- the iterative baselines: counters from 0, read right after
-    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
     phase_baselines_a(line, one_shot_a)
     baselines_a_s = time.time() - t0
@@ -2819,7 +3188,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- few-shot + finetune: counters from 0, read right after
-    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
     sdpa_ft, km_ft = phase_finetune_a(line, few_shot_a_auc)
     torch.cuda.synchronize()
@@ -2835,7 +3204,7 @@ def main() -> int:
 
     # ---- the fault/* family: counters from 0, read right after
     torch.cuda.empty_cache()
-    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
     flt = phase_faults(line)
     torch.cuda.synchronize()
@@ -2853,7 +3222,7 @@ def main() -> int:
 
     # ---- the folds: counters from 0, read right after
     torch.cuda.empty_cache()
-    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
     fld = phase_folds(line, flt)
     torch.cuda.synchronize()
@@ -2874,7 +3243,7 @@ def main() -> int:
 
     # ---- the scenario catalog: counters from 0, read right after
     torch.cuda.empty_cache()
-    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
     cat = phase_catalog(line)
     torch.cuda.synchronize()
@@ -2897,7 +3266,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- the serving path: counters from 0, read right after
-    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     phase_serving(art_b, gen, line)
     expected = phase_partial(art_b, gen, 4, line)
     expected += phase_partial(patches, gen, 3, line)
@@ -2917,7 +3286,7 @@ def main() -> int:
 
     # ---- the model-zoo serving path: counters from 0, read right after
     torch.cuda.synchronize()
-    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
     zoo = phase_zoo(line)
     torch.cuda.synchronize()
@@ -2937,7 +3306,7 @@ def main() -> int:
 
     # ---- the zoo families at full width: counters from 0, read right after
     torch.cuda.synchronize()
-    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = dops.LAUNCHES = 0
+    ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
     fam = {"rmsnorm": 0, "decode_attention": 0}
     for name in ZOO_FAMILIES + ZOO_LAST:  # one at a time: each frees the card before the next
@@ -2946,6 +3315,7 @@ def main() -> int:
     torch.cuda.synchronize()
     families_s = time.time() - t0
     check(ops.LAUNCHES == kops.LAUNCHES == 0, "a VFL kernel launched on the zoo families' path")
+    check(rops.BACKWARD_LAUNCHES == 0, "the RMSNorm backward launched in zoo serving")
     print(
         f"[path] zoo-families: rmsnorm launches {fam['rmsnorm']}, decode_attention launches "
         f"{fam['decode_attention']} (each part exactly granite 65 / 32, mamba2 97 / 0, zamba2 "
@@ -2953,6 +3323,7 @@ def main() -> int:
         f"decode step, the same rmsnorm count and 0 a prefill_fn, seamless 122 / 0 a prefill_fn "
         f"and 49 / 0 an enc_out) in {families_s:.1f} s"
     )
+    train, vfl, train_s, vfl_s = run_training_paths(line)
     print(
         f"[time] {time.time() - t_start:.1f} s from the build on; few-shot phases "
         f"{few_shot_s:.1f} s; baselines A {baselines_a_s:.1f} s, baselines B {baselines_b_s:.1f} "
@@ -2962,7 +3333,8 @@ def main() -> int:
         f"{catalog_s:.1f} s; the zoo's "
         f"share: kernel phases "
         f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s, "
-        f"reduced families {families_small_s:.1f} s, full-width families {families_s:.1f} s"
+        f"reduced families {families_small_s:.1f} s, full-width families {families_s:.1f} s, "
+        f"zoo-train {train_s:.1f} s, zoo-vfl {vfl_s:.1f} s"
     )
 
     def entry(name, source, replaces, count, row):
@@ -2993,8 +3365,16 @@ def main() -> int:
             "rmsnorm",
             "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             "src/repro/kernels/rmsnorm/kernel.py:21",
-            zoo["rmsnorm"] + fam["rmsnorm"],
+            zoo["rmsnorm"] + fam["rmsnorm"] + train["rmsnorm"] + vfl["rmsnorm"],
             rms_row,
+        ),
+        entry(
+            "rmsnorm_backward",
+            "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+            # no TPU kernel: the reference's gradient of its jnp norm
+            "src/repro/models/layers.py:54",
+            train["rmsnorm_backward"] + vfl["rmsnorm_backward"],
+            rms_bwd_row,
         ),
         entry(
             "decode_attention",

@@ -246,7 +246,16 @@ def _param_tree(art: TrainedVFLModel) -> dict:
 def save_artifact(directory: str, art: TrainedVFLModel) -> str:
     """Persist one artifact per directory (atomic, via ``save_checkpoint``):
     the parameters as the pytree, the declarative fields as metadata with
-    the reference's keys. Returns the checkpoint's path."""
+    the reference's keys. Returns the checkpoint's path. Only ``mlp`` and
+    ``cnn`` extractors have an artifact form (the reference's
+    ``ExtractorSpec`` knows no other kind): a model-zoo extractor's
+    (``ZooExtractorSpec``, kind ``zoo``) is refused."""
+    for s in art.extractor_specs:
+        if s.kind not in ("mlp", "cnn"):
+            raise ValueError(
+                f"an extractor of kind {s.kind!r} has no artifact form: the reference's "
+                "ExtractorSpec (repro/checkpoint/artifact.py) knows only 'mlp' and 'cnn'"
+            )
     meta = {
         "artifact_version": art.version,
         "scenario": art.scenario,

@@ -7,7 +7,11 @@ Counterpart of ``repro.core.augment``, NHWC images and flat tabular rows:
 * image strong A(x): α(x), cutout (keeps ``|r−cy| > s//2 or |c−cx| > s//2``),
   a per-sample per-channel affine colour jitter, Gaussian noise;
 * tabular FixMatch-tab (Eq. 5-6): ``m ⊗ x + (1−m) ⊗ x̄`` with one Bernoulli
-  keep-mask shared by the weak and strong views, plus ``σ·n`` on the strong.
+  keep-mask shared by the weak and strong views, plus ``σ·n`` on the strong;
+* tokens, FixMatch-tab generalised to token sequences: the weak view masks
+  each token to ``mask_id`` 0 with probability r_m; the strong view masks
+  where the weak one does and also where a second Bernoulli(1 − 0.4) draw
+  fails. The views keep the input's dtype (a split's tokens are float32).
 
 Every random choice (flips, shifts, cutout centres, jitter, noise, masks)
 is an argument, so a test can hand in the reference's own draws; the
@@ -44,6 +48,12 @@ class ImageStrongDraws:
 class TabPairDraws:
     keep: torch.Tensor  # (n, d) bool: m_i = 1 keeps x_i
     noise: torch.Tensor  # (n, d) standard normal
+
+
+@dataclass
+class TokenPairDraws:
+    keep_weak: torch.Tensor  # (n, S) bool: the weak view keeps the token
+    keep_strong: torch.Tensor  # (n, S) bool: keep_weak & a second Bernoulli(1 − 0.4)
 
 
 def draw_image_weak(
@@ -83,6 +93,25 @@ def draw_tab_pair(
 ) -> TabPairDraws:
     keep = draw_tab_keep(gen, shape, mask_ratio, device)
     return TabPairDraws(keep, torch.randn(tuple(shape), generator=gen, device=device))
+
+
+def draw_token_keep(
+    gen: torch.Generator, shape: Sequence[int], mask_ratio: float, device: torch.device
+) -> torch.Tensor:
+    """The weak token view's keep-mask: Bernoulli(1 − r_m) per token."""
+    return draw_tab_keep(gen, shape, mask_ratio, device)
+
+
+def draw_token_pair(
+    gen: torch.Generator,
+    shape: Sequence[int],
+    mask_ratio: float,
+    device: torch.device,
+    strong_ratio: float = 0.4,
+) -> TokenPairDraws:
+    keep_w = draw_token_keep(gen, shape, mask_ratio, device)
+    keep_s = keep_w & (torch.rand(tuple(shape), generator=gen, device=device) < 1.0 - strong_ratio)
+    return TokenPairDraws(keep_w, keep_s)
 
 
 # ------------------------------------------------------------------ images --
@@ -147,3 +176,16 @@ def weak_augment_tab(
     x: torch.Tensor, feature_mean: torch.Tensor, keep: torch.Tensor
 ) -> torch.Tensor:
     return torch.where(keep, x, feature_mean)
+
+
+# ------------------------------------------------------------------ tokens --
+def token_augment_pair(
+    x: torch.Tensor, d: TokenPairDraws, mask_id: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weak, strong) token views of x (B, S), ``mask_id`` where masked."""
+    fill = torch.full((), mask_id, dtype=x.dtype, device=x.device)
+    return torch.where(d.keep_weak, x, fill), torch.where(d.keep_strong, x, fill)
+
+
+def weak_augment_tokens(x: torch.Tensor, keep: torch.Tensor, mask_id: int = 0) -> torch.Tensor:
+    return torch.where(keep, x, torch.full((), mask_id, dtype=x.dtype, device=x.device))

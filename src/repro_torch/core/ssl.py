@@ -6,7 +6,10 @@ Counterpart of ``repro.core.ssl``. One minibatch of Eq. (4),
     l_u   = 1[max q > τ] · CE(p(y | A(x_u)), argmax q),  q = p(y | α(x_u)),
 
 with masked means ``Σ ce·m / max(Σ m, 1)`` wherever a validity mask is
-given. The FixMatch targets q are computed under ``torch.no_grad()``. The
+given. Three modalities: ``"image"`` (FixMatch's flip / translate weak view
+and cutout / jitter / noise strong view), ``"tabular"`` (FixMatch-tab,
+Eq. 5-6) and ``"token"`` (token masking to id 0 at r_m, the strong view
+masking more: a zoo backbone as the extractor; it reads no feature mean). The FixMatch targets q are computed under ``torch.no_grad()``. The
 augmentation draws arrive as an :class:`SSLDraws` argument
 (:func:`draw_ssl` makes them from a ``torch.Generator``).
 """
@@ -24,7 +27,7 @@ from repro_torch.core import augment
 
 @dataclass(frozen=True)
 class SSLConfig:
-    modality: str = "image"  # "image" | "tabular"
+    modality: str = "image"  # "image" | "tabular" | "token"
     lambda_u: float = 1.0  # λ_u in Eq. (4)
     confidence_threshold: float = 0.95  # τ (FixMatch default)
     mask_ratio: float = 0.2  # r_m (paper: 0.2)
@@ -39,7 +42,9 @@ class SSLDraws:
 
     Image: ``labeled`` is an :class:`~augment.ImageWeakDraws`, ``unlabeled``
     a (weak, strong) pair of image draws. Tabular: ``labeled`` is the
-    weak view's keep-mask and ``unlabeled`` a :class:`~augment.TabPairDraws`."""
+    weak view's keep-mask and ``unlabeled`` a :class:`~augment.TabPairDraws`.
+    Token: ``labeled`` is the weak view's keep-mask and ``unlabeled`` a
+    :class:`~augment.TokenPairDraws`."""
 
     labeled: Any
     unlabeled: Any
@@ -60,6 +65,9 @@ def draw_ssl(
     if cfg.modality == "tabular":
         keep = augment.draw_tab_keep(gen, labeled_shape, cfg.mask_ratio, device)
         return SSLDraws(keep, augment.draw_tab_pair(gen, unlabeled_shape, cfg.mask_ratio, device))
+    if cfg.modality == "token":
+        keep = augment.draw_token_keep(gen, labeled_shape, cfg.mask_ratio, device)
+        return SSLDraws(keep, augment.draw_token_pair(gen, unlabeled_shape, cfg.mask_ratio, device))
     raise ValueError(f"unsupported SSL modality {cfg.modality!r}")
 
 
@@ -91,6 +99,9 @@ def augment_views(
             x_unlabeled, feature_mean, draws.unlabeled, cfg.sigma
         )
         return xl, weak_u, strong_u
+    if cfg.modality == "token":
+        weak_u, strong_u = augment.token_augment_pair(x_unlabeled, draws.unlabeled)
+        return augment.weak_augment_tokens(x_labeled, draws.labeled), weak_u, strong_u
     raise ValueError(f"unsupported SSL modality {cfg.modality!r}")
 
 

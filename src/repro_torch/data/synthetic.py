@@ -2,14 +2,18 @@
 
 Counterparts of ``repro.data.synthetic.make_tabular_credit`` (the
 UCI-credit-like ``credit/*`` task), ``make_cluster_tabular`` (the hardened
-``hard/*`` task) and ``make_image_classification`` (CIFAR-like class
-templates plus noise), with the same formulas and defaults. PyTorch cannot
+``hard/*`` task), ``make_image_classification`` (CIFAR-like class
+templates plus noise), ``make_token_stream`` (the zoo's language-model
+batches) and ``make_sequence_classification`` (token sequences whose class
+is a topic: the zoo backbone as a VFL extractor), with the same formulas
+and defaults. PyTorch cannot
 replay JAX's random streams, so the values differ from the reference's for
 the same seed; shapes, label balance and class structure do not. Parity
 tests carry the reference's own data across instead
 (:func:`repro_torch.data.vertical.split_from_numpy`), or feed the
 deterministic part of a generator the reference's own draws
-(:func:`tabular_credit_from_draws`).
+(:func:`tabular_credit_from_draws`, :func:`token_stream_from_draws`,
+:func:`sequence_classification_from_draws`).
 """
 
 from __future__ import annotations
@@ -149,6 +153,64 @@ def make_image_classification(
     x += torch.randn(num_samples, h, w, channels, generator=g, device=dev)
     x /= 1.0 + template_strength
     return x.float(), labels
+
+
+def token_stream_from_draws(u: torch.Tensor, vocab_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The deterministic part of :func:`make_token_stream`: Zipf-like ids
+    ``clip(int(u^-0.7 − 1), 0, V − 1)`` of uniform draws u (B, S + 1) on
+    [1e-6, 1), in f32 → (tokens, labels), each (B, S) int32, the labels the
+    next token."""
+    ids = (u.float() ** -0.7 - 1.0).to(torch.int32).clamp(0, vocab_size - 1)
+    return ids[:, :-1], ids[:, 1:]
+
+
+def make_token_stream(
+    generator: torch.Generator, batch: int, seq_len: int, vocab_size: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A synthetic LM batch on the generator's device: Zipf-like token ids
+    and labels = the next token, each (batch, seq_len) int32."""
+    u = torch.rand(batch, seq_len + 1, generator=generator, device=generator.device)
+    return token_stream_from_draws(1e-6 + (1.0 - 1e-6) * u, vocab_size)
+
+
+def sequence_classification_from_draws(
+    topics: torch.Tensor,
+    labels: torch.Tensor,
+    base: torch.Tensor,
+    pick: torch.Tensor,
+    use_topic: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The deterministic part of :func:`make_sequence_classification`: row
+    i's token j is ``topics[labels[i], pick[i, j]]`` where ``use_topic``,
+    else ``base[i, j]``. topics (C, V // 4) ids in [1, V), labels (N,) in
+    [0, C), base (N, S) in [1, V), pick (N, S) in [0, V // 4), use_topic
+    (N, S) bool → (x (N, S) int32, labels (N,) int64)."""
+    topic_tok = topics[labels.long()].gather(1, pick.long())
+    return torch.where(use_topic, topic_tok, base).to(torch.int32), labels.long()
+
+
+def make_sequence_classification(
+    num_samples: int,
+    *,
+    seed: int = 0,
+    device: DeviceLike = None,
+    seq_len: int = 32,
+    vocab_size: int = 64,
+    num_classes: int = 4,
+    topic_strength: float = 0.5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token sequences whose class is a 'topic': each class over-samples a
+    class-specific token subset, spread over the whole sequence so that both
+    halves of a row are informative (the VFL-on-LM scenario). Returns x
+    (N, S) int32 and y (N,) int64."""
+    dev = resolve_device(device)
+    g = _generator(seed, dev)
+    topics = torch.randint(1, vocab_size, (num_classes, vocab_size // 4), generator=g, device=dev)
+    labels = torch.randint(0, num_classes, (num_samples,), generator=g, device=dev)
+    base = torch.randint(1, vocab_size, (num_samples, seq_len), generator=g, device=dev)
+    pick = torch.randint(0, vocab_size // 4, (num_samples, seq_len), generator=g, device=dev)
+    use_topic = torch.rand(num_samples, seq_len, generator=g, device=dev) < topic_strength
+    return sequence_classification_from_draws(topics, labels, base, pick, use_topic)
 
 
 def numpy_train_test_split(x, y, test_fraction: float = 0.2, seed: int = 0):

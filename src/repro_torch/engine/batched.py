@@ -47,6 +47,7 @@ from repro_torch.engine.local_ssl import (
     SSLHParams,
     _functional,
     draw_session,
+    refuse_unstackable,
     stack_pays,
     tasks_are_homogeneous,
     train_clients_ssl,
@@ -94,6 +95,7 @@ def train_clients_ssl_seeds(
         return [metrics], [path]
     k = len(tasks_per_seed[0])
     flat = flatten_seed_tasks(tasks_per_seed)
+    refuse_unstackable(flat, mode)
     homogeneous = len({len(t) for t in tasks_per_seed}) == 1 and tasks_are_homogeneous(flat)
     if mode == "vmap" and not homogeneous:
         raise ValueError(

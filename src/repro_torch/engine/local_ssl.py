@@ -174,7 +174,9 @@ def train_party_ssl(
                 None if task.unlabeled_mask is None else task.unlabeled_mask[iu],
             )
         if commit:
-            opt.step(torch.autograd.grad(loss, params))
+            # zeros for a parameter the loss does not reach (an untied zoo
+            # backbone's unembed), as jax.grad gives them
+            opt.step(torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True))
     return {k: float(v) for k, v in metrics.items()}
 
 
@@ -433,6 +435,18 @@ def stack_pays(spec, num_parties: int, num_entries: int = 1) -> bool:
     return num_entries > 1 or num_parties >= STACK_MIN_PARTIES
 
 
+def refuse_unstackable(tasks: Sequence[PartyTask], mode: str) -> None:
+    """``mode`` "vmap" over an extractor that no spec describes (a model-zoo
+    backbone) raises before anything runs: its norms launch the RMSNorm
+    kernel through a ctypes entry that takes one (rows, d) tensor, never a
+    batched one."""
+    if mode == "vmap" and any(sessions.module_spec(t.extractor) is None for t in tasks):
+        raise ValueError(
+            "engine mode 'vmap' cannot stack a model-zoo extractor: its RMSNorm kernel takes "
+            "one (rows, d) tensor, not a batched one; use mode='auto' or 'python'"
+        )
+
+
 def train_clients_ssl(
     tasks: Sequence[PartyTask],
     hp: SSLHParams,
@@ -449,6 +463,7 @@ def train_clients_ssl(
     (and raises on heterogeneous tasks); ``"python"`` forces the loop."""
     if mode not in ("auto", "vmap", "python"):
         raise ValueError(f"unknown engine mode {mode!r}")
+    refuse_unstackable(tasks, mode)
     homogeneous = tasks_are_homogeneous(tasks)
     if mode == "vmap" and not homogeneous:
         raise ValueError(

@@ -17,9 +17,17 @@ inputs are checked once per shape: the first call with a new (shape, dtype,
 device) pair of x and scale, eps and alignment checks them and builds a
 :class:`Plan` from :func:`launch_shape`; later calls look the plan up,
 allocate the output, read the current stream and call the C entry with five
-pointers (the C entry makes the plan's device current if it is not). The
-kernel has no backward yet: on the card, a call that autograd would
-differentiate raises. ``LAUNCHES`` counts kernel launches.
+pointers (the C entry makes the plan's device current if it is not).
+``LAUNCHES`` counts forward kernel launches.
+
+Under autograd (grad enabled and x or scale requiring grad) the call goes
+through :class:`RmsNormFunction`: the forward as above, and a backward
+that recomputes r from x. On the card the backward is the hand-written
+``rmsnorm_bwd_*`` kernel (``csrc/rmsnorm.cu``: a row pass and a
+deterministic column sum for dscale), counted in ``BACKWARD_LAUNCHES``; on
+the CPU both directions are the plain versions of :mod:`.ref`. A call with
+grad off keeps the short host path, so serving's launches and times do not
+move.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rmsnorm import ref
 
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0  # one a backward call: its row pass and its column sum
 MAX_THREADS = 1024
 MAX_BLOCKS = 1 << 16  # past this the blocks stride over the rows
 
@@ -40,6 +49,11 @@ _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # absent from CPU builds
 _fns: dict = {}
 _plans: dict = {}
+_bwd_plans: dict = {}
+# the backward's dscale accumulator is d floats of dynamic shared memory a
+# block, beside its row pass's 512 B of static reduction slots
+# (red[2][2][MAX_WARPS]), within the 227 KB a block may take
+MAX_BACKWARD_D = (227 * 1024 - 512) // 4
 
 
 class Plan(ctypes.Structure):
@@ -58,11 +72,25 @@ class Plan(ctypes.Structure):
     ]
 
 
-def _kernel(x_dtype: torch.dtype, scale_dtype: torch.dtype):
-    name = f"rmsnorm_{_NAMES[x_dtype]}_{_NAMES[scale_dtype]}"
+class BackwardPlan(ctypes.Structure):
+    """One backward launch's shape and device, as the C entry reads it
+    (``RmsnormBwdPlan``)."""
+
+    _fields_ = [
+        ("rows", ctypes.c_longlong),
+        ("d", ctypes.c_int),
+        ("eps", ctypes.c_float),
+        ("threads", ctypes.c_int),
+        ("blocks", ctypes.c_int),
+        ("device", ctypes.c_int),
+    ]
+
+
+def _kernel(x_dtype: torch.dtype, scale_dtype: torch.dtype, prefix: str = "rmsnorm", args: int = 5):
+    name = f"{prefix}_{_NAMES[x_dtype]}_{_NAMES[scale_dtype]}"
     if name not in _fns:
         fn = getattr(_build.load_library("rmsnorm"), name)
-        fn.argtypes = [ctypes.c_void_p] * 5
+        fn.argtypes = [ctypes.c_void_p] * args
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
@@ -88,6 +116,14 @@ def launch_shape(rows: int, d: int, itemsize: int, sms: int) -> Tuple[int, int, 
     per_row = min(MAX_THREADS, _warps(-(-slots // 2)))
     rows_per_block = max(1, 256 // per_row)
     return per_row * rows_per_block, rows_per_block, min(-(-rows // rows_per_block), MAX_BLOCKS)
+
+
+def backward_shape(rows: int, d: int, sms: int) -> Tuple[int, int]:
+    """(threads, blocks) of the backward's row pass: about four elements a
+    thread of a row (whole warps, 32 to 1024), and at most two blocks an SM
+    (``2 · sms``), each walking its share of the rows; the f32 dscale
+    scratch then holds ``blocks`` rows of d."""
+    return min(MAX_THREADS, max(32, _warps(-(-d // 4)))), max(1, min(rows, 2 * sms))
 
 
 def vectors_per_thread(threads_per_row: int, d: int, itemsize: int, aligned: bool) -> int:
@@ -142,14 +178,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     global LAUNCHES
     if not (getattr(x, "is_cuda", False) and torch.is_tensor(scale)):
         _check(x, scale)
-        if x.device.type == "cpu":
-            return ref.rms_norm(x, scale, eps)
-        raise ValueError(f"no RMSNorm route for device {x.device}")
+        if x.device.type != "cpu":
+            raise ValueError(f"no RMSNorm route for device {x.device}")
+        if (x.requires_grad or scale.requires_grad) and torch.is_grad_enabled():
+            return RmsNormFunction.apply(x, scale, eps)
+        return ref.rms_norm(x, scale, eps)
     # the card: this is every call's host path, kept short (see the module doc)
     if (x.requires_grad or scale.requires_grad) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the RMSNorm kernel has no backward yet (ROADMAP Queue 1 #14): call it without grad"
-        )
+        return RmsNormFunction.apply(x, scale, eps)
     if not x.is_contiguous():
         x = x.contiguous()
     if not scale.is_contiguous():
@@ -171,3 +207,77 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
         raise RuntimeError(f"rmsnorm launch failed: cudaError_t {err}")
     LAUNCHES += 1
     return out
+
+
+def rms_norm_backward(
+    x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dscale) of :func:`rms_norm` at (x, scale) for the output's
+    gradient ``dy`` (x's shape and dtype): dx in x's dtype, dscale in
+    scale's. A CPU tensor takes the plain version
+    (:func:`.ref.rms_norm_backward`); a CUDA tensor launches the backward
+    kernel, or raises."""
+    global BACKWARD_LAUNCHES
+    _check(x, scale)
+    if not torch.is_tensor(dy) or dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(
+            f"dy must match x's shape {tuple(x.shape)} and dtype {x.dtype}, got "
+            f"{tuple(getattr(dy, 'shape', ()))} {getattr(dy, 'dtype', type(dy).__name__)}"
+        )
+    if dy.device != x.device:
+        raise ValueError(f"dy is on {dy.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        return ref.rms_norm_backward(x, scale, dy, eps)
+    if not x.is_cuda:
+        raise ValueError(f"no RMSNorm backward route for device {x.device}")
+    for name, t in (("x", x), ("scale", scale)):
+        if t.dtype not in _NAMES:
+            raise TypeError(f"the RMSNorm backward takes float32 or bfloat16 {name}, got {t.dtype}")
+    d = x.shape[-1]
+    if d > MAX_BACKWARD_D:
+        raise ValueError(f"the RMSNorm backward takes d <= {MAX_BACKWARD_D}, got {d}")
+    x, dy, scale = x.contiguous(), dy.contiguous(), scale.contiguous()
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    if rows == 0:
+        return dx, dscale.zero_()
+    key = (x.shape, x.dtype, scale.dtype, x.get_device(), eps)
+    plan = _bwd_plans.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        threads, blocks = backward_shape(rows, d, sms)
+        p = BackwardPlan(rows, d, eps, threads, blocks, x.get_device())
+        fn = _kernel(x.dtype, scale.dtype, "rmsnorm_bwd", 8)
+        plan = _bwd_plans[key] = (fn, p, ctypes.addressof(p), blocks)
+    fn, _, plan_ptr, blocks = plan
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    err = fn(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+        partial.data_ptr(), plan_ptr, _raw_stream(x.get_device()),
+    )
+    if err != 0:
+        raise RuntimeError(f"rmsnorm backward launch failed: cudaError_t {err}")
+    BACKWARD_LAUNCHES += 1
+    return dx, dscale
+
+
+class RmsNormFunction(torch.autograd.Function):
+    """:func:`rms_norm` with its backward: the forward kernel (or plain
+    version) saving x and scale, and :func:`rms_norm_backward`, which
+    recomputes r from x. Works under non-reentrant activation checkpointing
+    (the recomputed forward launches again)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rms_norm(x, scale, eps)  # grad is off in here: the direct route
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy: torch.Tensor):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rms_norm_backward(x, scale, dy.to(x.dtype), ctx.eps)
+        need_x, need_scale, _ = ctx.needs_input_grad
+        return (dx if need_x else None), (dscale if need_scale else None), None

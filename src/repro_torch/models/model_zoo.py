@@ -5,6 +5,8 @@ the launchers need:
 
 * ``init(generator)``   — the family's parameter module, seeded, on the
   generator's device;
+* ``loss_fn``           — next-token cross-entropy over a (tokens, labels)
+  batch, plus 0.01 × the MoE blocks' summed switch aux loss;
 * ``prefill_fn``        — full-sequence forward → last-position logits;
 * ``decode_fn``         — one token against the decode cache;
 * ``hidden_fn``         — final-layer hidden states (the VFL extractor's);
@@ -37,9 +39,14 @@ The reference stacks repeated blocks on leading axes and scans them; here
 they are ``nn.ModuleList``s and the axes are list indices. Decode caches
 keep the reference's stacked trees (``cache_shapes``) and ``decode_fn``
 updates them in place (the reference returns a new tree and donates the
-old one). ``prefill_fn`` and ``decode_fn`` run without autograd; the MoE's
-aux loss, ``loss_fn`` and the train step wait for the training slice (the
-kernels have no backward yet).
+old one). ``prefill_fn`` and ``decode_fn`` run without autograd.
+
+With ``cfg.remat``, a full-sequence forward under grad runs each repeated
+block under ``torch.utils.checkpoint`` (non-reentrant), where the reference
+puts ``jax.checkpoint`` on each scan body: the decoder's MoE or dense
+blocks (not deepseek's ``dense0``), every Mamba2 block (not zamba2's
+shared attention block), the audio encoder's and decoder's blocks. The
+backward then re-runs each block's forward, its RMSNorm launches included.
 """
 
 from __future__ import annotations
@@ -49,7 +56,9 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.specs import TensorSpec
@@ -208,19 +217,46 @@ def _dense_block_apply(
     params: DenseBlock, x: torch.Tensor, cfg: ArchConfig, positions, cache, rope=None,
     window: Optional[int] = None,
 ) -> torch.Tensor:
+    """One pre-norm block's output (:func:`_dense_block` without the aux)."""
+    return _dense_block(params, x, cfg, positions, cache, rope, window)[0]
+
+
+def _dense_block(
+    params: DenseBlock, x: torch.Tensor, cfg: ArchConfig, positions, cache, rope=None,
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One pre-norm block → (x, the MoE's switch aux loss, or None for a
+    dense FFN)."""
     attn_in = L.rms_norm(x, params.ln1_scale, cfg.norm_eps)
     attend = L.mla_apply if cfg.mla is not None else L.attention_apply
     h, _ = attend(params.attn, attn_in, cfg, positions, window=window, cache=cache, rope=rope)
     x = x + h.to(x.dtype)
     ff_in = L.rms_norm(x, params.ln2_scale, cfg.norm_eps)
+    aux = None
     if hasattr(params, "moe"):
-        y, _ = MOE.moe_apply(params.moe, ff_in, cfg)  # the aux loss: the training slice's
+        y, aux = MOE.moe_apply(params.moe, ff_in, cfg)
     else:
         y = L.ffn_apply(params.ffn, ff_in, cfg)
-    return x + y.to(x.dtype)
+    return x + y.to(x.dtype), aux
 
 
-def _mamba_block_apply(params: MambaBlock, x: torch.Tensor, cfg: ArchConfig, cache) -> torch.Tensor:
+def _remat(cfg: ArchConfig, caches) -> bool:
+    """Checkpoint each block: the config asks for it, autograd records, and
+    the call is a full-sequence forward (never a decode)."""
+    return cfg.remat and caches is None and torch.is_grad_enabled()
+
+
+def _block(fn: Callable, remat: bool, *args):
+    """``fn(*args)``, under non-reentrant activation checkpointing when
+    ``remat``."""
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+
+def _add_aux(total, aux):
+    return aux if total is None else (total if aux is None else total + aux)
+
+
+def _mamba_block_apply(params: MambaBlock, x: torch.Tensor, cfg: ArchConfig, cache=None) -> torch.Tensor:
     h, _ = SSM.mamba_apply(params.mamba, L.rms_norm(x, params.ln_scale, cfg.norm_eps), cfg, cache)
     return x + h.to(x.dtype)
 
@@ -266,22 +302,33 @@ def _decoder_forward(
     positions3,
     window: Optional[int],
     caches: Optional[Tree],
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x (B, S, d) embedded input; caches None (prefill) or the stacked
-    tree, updated in place. Returns the final-normed hidden states."""
+    tree, updated in place. Returns the final-normed hidden states and the
+    MoE blocks' summed aux loss (None without MoE blocks; ``dense0`` adds
+    none)."""
     rope = _rope(cfg, positions, positions3)
     if hasattr(params, "dense0"):
         c0 = None if caches is None else caches["dense0"]
         x = _dense_block_apply(params.dense0, x, cfg, positions, c0, rope, window)
     blocks = None if caches is None else caches["blocks"]
+    remat, aux = _remat(cfg, caches), None
     for i, block in enumerate(params.blocks):
-        x = _dense_block_apply(block, x, cfg, positions, _layer(blocks, i), rope, window)
-    return L.rms_norm(x, params.final_ln_scale, cfg.norm_eps)
+        x, a = _block(
+            lambda x_, b=block, c=_layer(blocks, i): _dense_block(
+                b, x_, cfg, positions, c, rope, window
+            ),
+            remat,
+            x,
+        )
+        aux = _add_aux(aux, a)
+    return L.rms_norm(x, params.final_ln_scale, cfg.norm_eps), aux
 
 
 def _mamba_scan(blocks: nn.ModuleList, x: torch.Tensor, cfg: ArchConfig, caches) -> torch.Tensor:
+    remat = _remat(cfg, caches)
     for i, block in enumerate(blocks):
-        x = _mamba_block_apply(block, x, cfg, _layer(caches, i))
+        x = _block(_mamba_block_apply, remat, block, x, cfg, _layer(caches, i))
     return x
 
 
@@ -329,12 +376,17 @@ def _encode(params: EncDecLM, cfg: ArchConfig, embeds: torch.Tensor) -> torch.Te
     pos = torch.arange(s, device=embeds.device)
     x = embeds.to(adt) + _sinusoidal_pos(pos, cfg.d_model)[None].to(adt)
     positions = torch.zeros((b, s), dtype=torch.int32, device=embeds.device)
-    for block in params.enc_blocks:
+
+    def enc_block(block: EncoderBlock, x: torch.Tensor) -> torch.Tensor:
         attn_in = L.rms_norm(x, block.ln1_scale, cfg.norm_eps)
         h, _ = L.attention_apply(block.attn, attn_in, cfg, positions, kv_chunk=min(1024, s))
         x = x + h.to(x.dtype)
         y = L.ffn_apply(block.ffn, L.rms_norm(x, block.ln2_scale, cfg.norm_eps), cfg)
-        x = x + y.to(x.dtype)
+        return x + y.to(x.dtype)
+
+    remat = _remat(cfg, None)
+    for block in params.enc_blocks:
+        x = _block(enc_block, remat, block, x)
     return L.rms_norm(x, params.enc_final_ln_scale, cfg.norm_eps)
 
 
@@ -349,10 +401,11 @@ def _decode_stack(
     b, sk = x.shape[0], enc_out.shape[1]
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     blocks = None if caches is None else caches["blocks"]
-    for i, block in enumerate(params.dec_blocks):
+
+    def dec_block(block: DecoderBlock, x: torch.Tensor, cache) -> torch.Tensor:
         attn_in = L.rms_norm(x, block.ln1_scale, cfg.norm_eps)
         h, _ = L.attention_apply(
-            block.self_attn, attn_in, cfg, positions, window=window, cache=_layer(blocks, i)
+            block.self_attn, attn_in, cfg, positions, window=window, cache=cache
         )
         x = x + h.to(x.dtype)
         ck = L.rms_norm(x, block.ln2_scale, cfg.norm_eps)
@@ -362,7 +415,11 @@ def _decode_stack(
         h2, _ = L.attention_apply(block.cross_attn, ck, cfg, positions, cross_kv=(k, v))
         x = x + h2.to(x.dtype)
         y = L.ffn_apply(block.ffn, L.rms_norm(x, block.ln3_scale, cfg.norm_eps), cfg)
-        x = x + y.to(x.dtype)
+        return x + y.to(x.dtype)
+
+    remat = _remat(cfg, caches)
+    for i, block in enumerate(params.dec_blocks):
+        x = _block(dec_block, remat, block, x, _layer(blocks, i))
     return L.rms_norm(x, params.final_ln_scale, cfg.norm_eps)
 
 
@@ -374,10 +431,18 @@ def _stack(tree: Tree, n: int) -> Tree:
     }
 
 
+def _ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy over every label, the log-softmax in
+    f32 (a bf16 unembed's logits are cast first)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels[..., None].long())[..., 0].mean()
+
+
 @dataclass(frozen=True)
 class ModelDef:
     cfg: ArchConfig
     init: Callable[[torch.Generator], ModelParams]
+    loss_fn: Callable[[ModelParams, Dict[str, torch.Tensor]], torch.Tensor]
     prefill_fn: Callable[[ModelParams, Dict[str, torch.Tensor]], torch.Tensor]
     decode_fn: Callable[[ModelParams, Tree, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Tree]]
     cache_shapes: Callable[[int, int], Tree]
@@ -391,11 +456,12 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
     window = window_override if window_override is not None else cfg.attn_window
 
     def forward(params: ModelParams, x: torch.Tensor, positions, positions3, caches):
-        """A decoder-only, SSM or hybrid stack over embedded x."""
+        """A decoder-only, SSM or hybrid stack over embedded x → (hidden
+        states, the MoE aux loss or None)."""
         if cfg.family == "ssm":
-            return _ssm_forward(params, cfg, x, caches)
+            return _ssm_forward(params, cfg, x, caches), None
         if cfg.family == "hybrid":
-            return _hybrid_forward(params, cfg, x, positions, window, caches)
+            return _hybrid_forward(params, cfg, x, positions, window, caches), None
         return _decoder_forward(params, cfg, x, positions, positions3, window, caches)
 
     def init(generator: torch.Generator) -> ModelParams:
@@ -419,7 +485,9 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
             positions3 = _positions3_for(b, prefix, s, device=x.device)
         return x, positions, positions3
 
-    def forward_hidden(params: ModelParams, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward_hidden(params: ModelParams, batch: Dict[str, torch.Tensor]):
+        """The full-sequence forward → (final hidden states, the MoE aux
+        loss or None)."""
         if cfg.family == "audio":
             enc_out = _encode(params, cfg, batch["embeds"])
             tokens = batch["tokens"]
@@ -427,15 +495,25 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
             x = L.embed(params.embed, tokens, cfg)
             pos = torch.arange(s, dtype=torch.int32, device=x.device)
             x = x + _sinusoidal_pos(pos, cfg.d_model)[None].to(x.dtype)
-            return _decode_stack(params, cfg, x, pos.expand(b, s), enc_out, window, None)
+            return _decode_stack(params, cfg, x, pos.expand(b, s), enc_out, window, None), None
         return forward(params, *embed_batch(params, batch), None)
+
+    def loss_fn(params: ModelParams, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Next-token CE over ``labels`` (B, S) plus 0.01 × the summed MoE
+        aux loss. The vlm's loss covers the text positions only (after its
+        ``embeds`` prefix); the audio family encodes ``embeds``."""
+        h, aux = forward_hidden(params, batch)
+        if cfg.family == "vlm" and "embeds" in batch:
+            h = h[:, batch["embeds"].shape[1] :, :]
+        loss = _ce_loss(L.unembed(params.embed, h, cfg), batch["labels"])
+        return loss if aux is None else loss + 0.01 * aux
 
     @torch.no_grad()
     def prefill_fn(params: ModelParams, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """tokens (B, S), and ``embeds`` (B, prefix, d) for the vlm (patches
         before the text) and audio (the encoder's frames) families →
         last-position logits."""
-        h = forward_hidden(params, batch)
+        h, _ = forward_hidden(params, batch)
         return L.unembed(params.embed, h[:, -1:, :], cfg)[:, 0, :]
 
     @torch.no_grad()
@@ -452,7 +530,7 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
             h = _decode_stack(params, cfg, x, pos, enc_out, window, caches)
         else:
             positions3 = pos[None].expand(3, *pos.shape) if cfg.rope_style == "mrope" else None
-            h = forward(params, x, pos, positions3, caches)
+            h, _ = forward(params, x, pos, positions3, caches)
         return L.unembed(params.embed, h, cfg)[:, 0, :], caches
 
     def cache_shapes(batch: int, cache_len: int) -> Tree:
@@ -485,11 +563,12 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
         """Final-layer hidden states (B, S, d): the backbone as a VFL
         representation extractor (with ``embeds`` for vlm and audio, as in
         :func:`prefill_fn`)."""
-        return forward_hidden(params, batch)
+        return forward_hidden(params, batch)[0]
 
     return ModelDef(
         cfg=cfg,
         init=init,
+        loss_fn=loss_fn,
         prefill_fn=prefill_fn,
         decode_fn=decode_fn,
         cache_shapes=cache_shapes,

@@ -7,19 +7,27 @@ final hidden states (in f32) into a ``rep_dim`` representation through
 (``model_zoo.make_backbone``): a decoder (MLA and vlm included), a Mamba2
 stack or the hybrid. The module has the port's extractor interface:
 ``init_(generator)`` and ``forward(x)`` over (B, S) token ids, returning
-(B, rep_dim).
+(B, rep_dim). A split carries its tokens as float32 (``split_from_numpy``
+casts every feature); ``forward`` casts them back to int32, exactly for ids
+below 2²⁴.
+
+:class:`ZooExtractorSpec` (kind ``zoo``) is what the protocol takes in
+place of an ``ExtractorSpec``: ``run_one_shot(seed, split, [spec] * K,
+[SSLConfig(modality="token")] * K, ...)`` trains the extractors by local
+SSL, on the card through the RMSNorm kernel's forward and backward. A zoo
+extractor never stacks with another (``sessions.module_spec`` describes
+none), and ``save_artifact`` refuses its spec.
 
 It passes tokens only, so an audio backbone, whose forward needs the
 encoder's frame embeddings, is refused with a ``ValueError`` when the
 extractor is made; the reference's extractor accepts one and fails with a
 ``KeyError`` at its first forward.
-
-On the card the forward norms through the RMSNorm kernel, which has no
-backward yet: call it without grad there (training a zoo extractor on the
-card waits for the training slice).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -60,3 +68,19 @@ def make_zoo_extractor(cfg: ArchConfig, rep_dim: int = 64, device: DeviceLike = 
     drawn: see ``init_``) on ``device`` (``cuda`` unless the caller says
     ``cpu``); x is (B, S) token ids."""
     return ZooExtractor(cfg, rep_dim, resolve_device(device))
+
+
+@dataclass(frozen=True)
+class ZooExtractorSpec:
+    """A party's zoo extractor, declared: the protocol builds it with
+    :meth:`build` as it builds an ``ExtractorSpec``'s."""
+
+    cfg: ArchConfig
+    rep_dim: int = 64
+    kind = "zoo"  # a class constant, not a field: the spec's kind is fixed
+
+    def build(self, feature_shape: Sequence[int]) -> ZooExtractor:
+        """The extractor (on the CPU; the client moves it) for (B, S) token
+        rows; ``feature_shape`` is (S,), which the backbone does not fix."""
+        del feature_shape
+        return ZooExtractor(self.cfg, self.rep_dim)

@@ -631,6 +631,153 @@ def test_rmsnorm_kernel_replays_from_a_cuda_graph(cuda):
         assert torch.equal(got, rops.rms_norm(x, scale))
 
 
+def _rms_bwd_check(x, scale, dy):
+    """The backward kernel (one counted launch) against float64: dx within
+    1e-5 of its largest entry in f32, within one bf16 step of the f64 value
+    (plus that) in bf16; dscale within 1e-5 of its largest entry; and the
+    plain version within the same bounds."""
+    before = rops.BACKWARD_LAUNCHES
+    dx, ds = rops.rms_norm_backward(x, scale, dy)
+    torch.cuda.synchronize()
+    assert rops.BACKWARD_LAUNCHES == before + 1
+    assert dx.dtype == x.dtype and dx.shape == x.shape and ds.dtype == scale.dtype
+    want_dx, want_ds = chip_smoke._bwd_oracle64(x, scale.float(), dy)
+    bound = chip_smoke.bwd_dx_bound(want_dx, x.dtype)
+    for got_dx, got_ds in ((dx, ds), rref.rms_norm_backward(x, scale, dy)):
+        assert bool(((got_dx.double() - want_dx).abs() <= bound).all())
+        tol_ds = 1e-5 if scale.dtype == torch.float32 else 2**-7
+        assert (got_ds.double() - want_ds).abs().max() <= tol_ds * want_ds.abs().max()
+    return dx, ds
+
+
+@pytest.mark.parametrize("rows, d", [(1024, 1024), (1024, 2048), (1024, 3072), (512, 256), (231, 130), (3, 7), (300, 16384)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_kernel_matches_f64(rows, d, x_dtype, scale_dtype, cuda):
+    """Every dtype pair at a [zoo-train] step's shapes, the zoo extractor's,
+    ragged rows and d past 12288 (its dscale accumulator past 48 KB of
+    shared memory)."""
+    x, scale = _rms_inputs(rows, d, x_dtype, scale_dtype, cuda, seed=rows + d)
+    dy = _rms_inputs(rows, d, x_dtype, scale_dtype, cuda, seed=rows + d + 1)[0]
+    dx, ds = _rms_bwd_check(x, scale, dy)
+    again = rops.rms_norm_backward(x, scale, dy)
+    assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])  # no atomics: the same bits
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_kernel_at_its_widest_row(x_dtype, cuda):
+    """d = MAX_BACKWARD_D: the dscale accumulator and the row pass's static
+    reduction slots fill the block's 227 KB of shared memory together; one
+    float more is refused before any launch."""
+    d = rops.MAX_BACKWARD_D
+    x, scale = _rms_inputs(5, d, x_dtype, torch.float32, cuda, seed=11)
+    dy = _rms_inputs(5, d, x_dtype, torch.float32, cuda, seed=12)[0]
+    _rms_bwd_check(x, scale, dy)
+    x, scale = _rms_inputs(5, d + 1, x_dtype, torch.float32, cuda, seed=11)
+    before = rops.BACKWARD_LAUNCHES
+    with pytest.raises(ValueError, match="d <= "):
+        rops.rms_norm_backward(x, scale, x)
+    assert rops.BACKWARD_LAUNCHES == before
+
+
+def test_rmsnorm_backward_kernel_takes_offset_and_empty_rows(cuda):
+    x, scale = _rms_inputs(40, 100, torch.float32, torch.float32, cuda, offset=3)
+    dy = torch.randn(40 * 100 + 1, device=cuda)[1:].view(40, 100)  # offset views: copied
+    _rms_bwd_check(x, scale, dy)
+    before = rops.BACKWARD_LAUNCHES
+    dx, ds = rops.rms_norm_backward(x[:0], scale, dy[:0])
+    assert rops.BACKWARD_LAUNCHES == before and dx.shape == (0, 100)
+    assert torch.equal(ds, torch.zeros_like(ds))
+
+
+def test_rmsnorm_backward_kernel_replays_from_a_cuda_graph(cuda):
+    x, scale = _rms_inputs(1024, 1024, torch.bfloat16, torch.float32, cuda)
+    dy = _rms_inputs(1024, 1024, torch.bfloat16, torch.float32, cuda, seed=5)[0]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rops.rms_norm_backward(x, scale, dy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = rops.rms_norm_backward(x, scale, dy)
+    for seed in (1, 2):
+        x.copy_(_rms_inputs(1024, 1024, torch.bfloat16, torch.float32, cuda, seed=seed)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        want = rops.rms_norm_backward(x, scale, dy)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_rmsnorm_under_grad_launches_both_kernels(cuda):
+    """Under autograd on the card the op launches the forward kernel and,
+    in the backward, the backward kernel: no plain route."""
+    x, scale = _rms_inputs(64, 256, torch.bfloat16, torch.float32, cuda)
+    dy = _rms_inputs(64, 256, torch.bfloat16, torch.float32, cuda, seed=3)[0]
+    xg, sg = x.clone().requires_grad_(True), scale.clone().requires_grad_(True)
+    f0, b0 = rops.LAUNCHES, rops.BACKWARD_LAUNCHES
+    y = rops.rms_norm(xg, sg)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (rops.LAUNCHES - f0, rops.BACKWARD_LAUNCHES - b0) == (1, 1)
+    dx, ds = rops.rms_norm_backward(x, scale, dy)
+    assert torch.equal(xg.grad, dx) and torch.equal(sg.grad, ds)
+    assert torch.equal(y.detach(), rops.rms_norm(x, scale))
+
+
+# (forward, backward) RMSNorm launches of a reduced train step: every norm
+# once each way, and the checkpointed blocks' norms again in the backward's
+# re-run (not the final norm, nor zamba2's shared block: not checkpointed)
+REDUCED_TRAIN_LAUNCHES = {
+    "mamba2-370m": (9, 5),
+    "phi4-mini-3.8b": (9, 5),
+    "granite-moe-3b-a800m": (9, 5),
+    "zamba2-1.2b": (11, 7),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REDUCED_TRAIN_LAUNCHES))
+def test_reduced_train_steps_card_equal_cpu(name, cuda):
+    """Three clip + Adam steps of a reduced config (f32 activations) on the
+    card and the CPU from the same weights and batch: first-step gradients
+    and every loss within 1e-4, and the exact launches of each step."""
+    from repro_torch.data import make_token_stream
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+
+    cfg = chip_smoke._zoo_cfg(name, reduced=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    host = copy.deepcopy(params).cpu()
+    tokens, labels = make_token_stream(torch.Generator().manual_seed(1), 2, 16, cfg.vocab_size)
+    losses, grads = {}, {}
+    for dev, p in ((cuda, params), ("cpu", host)):
+        batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+        grads[dev] = torch.autograd.grad(model.loss_fn(p, batch), list(p.parameters()))
+        tx = make_optimizer(cfg, 3e-4)
+        opt, step = tx.init(list(p.parameters())), make_train_step(model, tx)
+        losses[dev] = []
+        for _ in range(3):
+            f0, b0 = rops.LAUNCHES, rops.BACKWARD_LAUNCHES
+            losses[dev].append(float(step(p, opt, batch)))
+            if dev == cuda:
+                got = (rops.LAUNCHES - f0, rops.BACKWARD_LAUNCHES - b0)
+                assert got == REDUCED_TRAIN_LAUNCHES[name]
+    for a, b in zip(grads[cuda], grads["cpu"]):
+        assert chip_smoke._leaf_rel(a.cpu(), b) <= 1e-4
+    for a, b in zip(losses[cuda], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b)
+
+
+def test_zoo_extractor_trains_in_the_protocol_on_the_card(cuda):
+    """chip_smoke's [zoo-vfl] run: metric over the bar, the pinned bytes,
+    step ③'s k-means launches, and the norms launched forward and backward."""
+    _zero = chip_smoke._zero_counters
+    _zero()
+    counts = chip_smoke.phase_zoo_vfl("test")
+    assert counts["kmeans"] == chip_smoke.ProtocolConfig().kmeans_iters + 2
+    assert counts["rmsnorm"] > 0 and counts["rmsnorm_backward"] > 0
+
+
 _decode64 = chip_smoke.decode_oracle64  # the plain version's masks, in float64
 
 
