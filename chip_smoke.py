@@ -182,7 +182,14 @@ The RMSNorm backward has ``[kernel] rmsnorm_backward`` rows at the
 training path's shapes (1024 rows at d 1024 and 3072 in bf16 and 2048 in
 f32; the zoo extractor's 512 × 256 bf16; a ragged 231 × 130), held to a
 float64 plain version and run twice for equal bits, with its plain and
-library (``autograd.grad`` of ``F.rms_norm``) times.
+library (``autograd.grad`` of ``F.rms_norm``) times and the wrapper's host
+µs a call (its first call, which checks the inputs and builds the plan,
+apart); at the three training shapes, the kernel's and the library's
+device times with their inputs out of L2 (copies taken in turn, together
+three times the L2), the kernel's against its bytes bound; and
+``[plan] rmsnorm_backward`` rows at the three training shapes
+under other splits than the wrapper's (slots a thread, row groups a
+block, partial rows), each held against float64 and timed.
 
 The RMSNorm and decode-attention ``[kernel]`` rows include the families'
 shapes (d 1536, 1024, 2048, 5120 and 8192 in bf16, the gated norm's 2048
@@ -202,6 +209,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -2820,6 +2828,17 @@ def bwd_dx_bound(want_dx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return bound
 
 
+def bwd_bound(x: torch.Tensor) -> tuple:
+    """(bytes, bound ms, "bytes" or "operations") of the backward over x
+    (rows, d) with an f32 scale: x and dy read, dx written, scale read,
+    dscale written; about 12 f32 operations an element (the two row sums,
+    dx, dscale's term)."""
+    rows, d = x.shape
+    nbytes = 3 * rows * d * x.element_size() + 2 * 4 * d
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 12 * rows * d / H100_F32_FLOPS
+    return nbytes, max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
 def phase_rmsnorm_backward(gen) -> dict:
     """The RMSNorm backward kernel vs its plain version and float64, timed
     with events and from a CUDA graph, beside the plain backward and the
@@ -2830,7 +2849,10 @@ def phase_rmsnorm_backward(gen) -> dict:
         x = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
         scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
         dy = torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
-        dx, ds = rops.rms_norm_backward(x, scale, dy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dx, ds = rops.rms_norm_backward(x, scale, dy)  # checks the inputs, builds the plan
+        first_us = (time.perf_counter() - t0) * 1e6
         pdx, pds = rref.rms_norm_backward(x, scale, dy)
         dx2, ds2 = rops.rms_norm_backward(x, scale, dy)
         torch.cuda.synchronize()
@@ -2868,23 +2890,133 @@ def phase_rmsnorm_backward(gen) -> dict:
             "library_ms": time_ms(library),
             "device_ms": device_ms(lambda: rops.rms_norm_backward(x, scale, dy)),
             "library_device_ms": device_ms(library, stream=side),
+            "host_us": host_us(lambda: rops.rms_norm_backward(x, scale, dy)),
         }
-        # x and dy read, dx written; scale read, dscale written; about 12
-        # f32 operations an element (the two row sums, dx, dscale's term)
-        nbytes = 3 * rows * d * x.element_size() + 2 * 4 * d
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, 12 * rows * d / H100_F32_FLOPS
-        row["bound_ms"] = max(t_bytes, t_ops) * 1e3
-        row["bound_by"] = "bytes" if t_bytes > t_ops else "operations"
+        nbytes, row["bound_ms"], row["bound_by"] = bwd_bound(x)
         rows_out.append(row)
         times = " | ".join(f"{k} {row[k]:.4f} ms" for k in ZOO_TIMES)
         print(
             f"[kernel] rmsnorm_backward rows={rows} d={d} {row['shape'][2]} (scale f32): dx vs "
             f"f64 {dx_text} ({used:.2f} of its bound), dscale vs f64 {err_ds:.2e} of max, vs "
             f"plain {plain_err:.3e}, two runs bit-equal | {times} | bound "
-            f"{row['bound_ms']:.3e} ms ({row['bound_by']})"
+            f"{row['bound_ms']:.3e} ms ({row['bound_by']}) | host {row['host_us']:.1f} us a "
+            f"call (first call {first_us:.0f} us) | {_bwd_split_text(rops.device_backward_plan(x))}"
         )
         del lx, ls, ly
+        if (rows, d, dtype) in RMS_BWD_SHAPES[:3]:
+            copies = bwd_copies(x, scale, dy, nbytes)
+            row.update(_bwd_cold_row(copies, row["bound_ms"]))
+            _bwd_plan_rows(x, scale, dy, want_dx, want_ds, copies)
+            del copies
     return rows_out[0]  # mamba2-370m's block norm: 49 of a [zoo-train] step's 97
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host µs a call of ``fn()`` over ``calls`` calls that do not wait for
+    the card (synchronized before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def cold_device_ms(calls, iters: int = 50, stream=None) -> float:
+    """Mean device time of a call with its inputs out of L2: ``calls`` run
+    one function on as many copies of its inputs, whose bytes together are
+    several times the card's L2, and the graph's calls take them in turn;
+    every call's outputs are kept until the timing ends, so no output
+    buffer is written twice either."""
+    turn, kept = itertools.cycle(calls), []
+    ms = device_ms(lambda: kept.append(next(turn)()), max(iters, 2 * len(calls)), stream=stream)
+    kept.clear()
+    return ms
+
+
+def bwd_copies(x, scale, dy, nbytes: int) -> list:
+    """Copies of a backward's inputs for :func:`cold_device_ms` to take in
+    turn: enough that their ``nbytes`` each (inputs read, outputs written)
+    come to three times the card's L2."""
+    n = max(2, -(-3 * torch.cuda.get_device_properties(x.device).L2_cache_size // nbytes))
+    return [(x.clone(), scale.clone(), dy.clone()) for _ in range(n)]
+
+
+def _bwd_cold_row(copies, bound_ms: float) -> dict:
+    """The wrapper's backward and the library's with their inputs out of
+    L2 (:func:`cold_device_ms` over :func:`bwd_copies`' copies), the
+    kernel's time against its bytes bound; beside them ``x + dy`` into a
+    new tensor, which moves the same bytes (x and dy read, one x-sized
+    output written) in one library kernel, as a floor that the card
+    reaches in practice."""
+    x = copies[0][0]
+    d = x.shape[-1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    lib = []
+    with torch.cuda.stream(side):  # the library's forwards, as in phase_rmsnorm_backward
+        for cx, cs, cy in copies:
+            lx, ls = cx.detach().requires_grad_(True), cs.detach().requires_grad_(True)
+            lib.append((F.rms_norm(lx, (d,), ls, 1e-6), lx, ls, cy))
+    torch.cuda.current_stream().wait_stream(side)
+    out = {
+        "cold_device_ms": cold_device_ms([lambda c=c: rops.rms_norm_backward(*c) for c in copies]),
+        "library_cold_device_ms": cold_device_ms(
+            [lambda c=c: torch.autograd.grad(c[0], c[1:3], c[3], retain_graph=True) for c in lib],
+            stream=side,
+        ),
+        "same_bytes_cold_ms": cold_device_ms([lambda c=c: torch.add(c[0], c[2]) for c in copies]),
+    }
+    print(
+        f"[kernel] rmsnorm_backward rows={x.shape[0]} d={d} {str(x.dtype).split('.')[-1]}, inputs "
+        f"out of L2 ({len(copies)} copies in turn): device_ms {out['cold_device_ms']:.4f} "
+        f"({bound_ms / out['cold_device_ms']:.0%} of its bytes bound) | library_device_ms "
+        f"{out['library_cold_device_ms']:.4f} | x + dy, the same bytes: device_ms "
+        f"{out['same_bytes_cold_ms']:.4f} ({bound_ms / out['same_bytes_cold_ms']:.0%})"
+    )
+    return out
+
+
+def _bwd_split_text(split) -> str:
+    route = f"{split.vpt} slot(s) a thread" if split.vpt else "the loop route"
+    return (
+        f"{route}, {split.groups} row group(s) of {split.group_threads} threads a block, "
+        f"{split.blocks} blocks = partial rows of {split.rows_per_block} rows, column sum "
+        f"{split.sum_warps} warps"
+    )
+
+
+def _bwd_plan_rows(x, scale, dy, want_dx, want_ds, copies) -> None:
+    """The backward under other splits than the wrapper's at one shape:
+    every slots-a-thread route with the wrapper's rows a group, the
+    wrapper's route with one row a group and with two blocks an SM; each
+    held against float64 and timed from a CUDA graph with its inputs in L2
+    and out of it (``copies`` in turn), the wrapper's marked."""
+    rows, d = x.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wrapper = rops.device_backward_plan(x)
+    splits = {wrapper}
+    for vpt in (1, 2, 4):
+        splits.add(rops.backward_plan(rows, d, x.element_size(), sms, vpt=vpt))
+    per_block = -(-rows // sms)
+    splits.add(rops.backward_plan(rows, d, x.element_size(), sms, wrapper.vpt, per_block))
+    splits.add(rops.backward_plan(rows, d, x.element_size(), sms, wrapper.vpt, blocks_per_sm=2))
+    for split in sorted(splits):
+        if split.threads > rops.backward_max_threads(split.vpt):  # past the route's registers
+            continue
+        dx, ds = rops.backward_launch(x, scale, dy, split)
+        used = ((dx.double() - want_dx).abs() / bwd_dx_bound(want_dx, x.dtype)).max().item()
+        err_ds = (ds.double() - want_ds).abs().max().item() / want_ds.abs().max().item()
+        check(used <= 1.0 and err_ds <= RMS_BWD_TOL, f"rmsnorm backward split {split}: off vs f64")
+        ms = device_ms(lambda: rops.backward_launch(x, scale, dy, split))
+        cold = cold_device_ms([lambda c=c: rops.backward_launch(*c, split) for c in copies])
+        mark = " (the wrapper's plan)" if split == wrapper else ""
+        print(
+            f"[plan] rmsnorm_backward rows={rows} d={d} {str(x.dtype).split('.')[-1]}: "
+            f"{_bwd_split_text(split)} | device_ms {ms:.4f}, out of L2 {cold:.4f} | dx at "
+            f"{used:.2f} of its bound vs f64, dscale {err_ds:.2e} of max{mark}"
+        )
 
 
 def _pct(values, q: float) -> float:
@@ -3342,7 +3474,10 @@ def main() -> int:
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces}
         out["launches"] = count
         out.update({k: row[k] for k in keys})
-        extra = ("device_ms", "library_device_ms", "agreement")
+        extra = (
+            "device_ms", "library_device_ms", "agreement", "host_us", "cold_device_ms",
+            "library_cold_device_ms",
+        )
         out.update({k: row[k] for k in extra if k in row})
         return out
 

@@ -666,18 +666,73 @@ def test_rmsnorm_backward_kernel_matches_f64(rows, d, x_dtype, scale_dtype, cuda
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_backward_kernel_at_its_widest_row(x_dtype, cuda):
-    """d = MAX_BACKWARD_D: the dscale accumulator and the row pass's static
-    reduction slots fill the block's 227 KB of shared memory together; one
-    float more is refused before any launch."""
-    d = rops.MAX_BACKWARD_D
-    x, scale = _rms_inputs(5, d, x_dtype, torch.float32, cuda, seed=11)
-    dy = _rms_inputs(5, d, x_dtype, torch.float32, cuda, seed=12)[0]
-    _rms_bwd_check(x, scale, dy)
-    x, scale = _rms_inputs(5, d + 1, x_dtype, torch.float32, cuda, seed=11)
+    """The widest row the first version's shared-memory accumulator took
+    (57984) and one past it: both on the loop route, whose dscale terms go
+    to the block's partial row in the scratch, so no width is refused."""
+    for d in (57984, 57985):
+        x, scale = _rms_inputs(5, d, x_dtype, torch.float32, cuda, seed=11)
+        dy = _rms_inputs(5, d, x_dtype, torch.float32, cuda, seed=12)[0]
+        assert rops.device_backward_plan(x).vpt == 0
+        _rms_bwd_check(x, scale, dy)
+
+
+def _rms_bwd_split_check(rows, d, x_dtype, scale_dtype, device, **override):
+    """The kernel under backward_plan(rows, d, ..., **override) against
+    float64 (one counted launch), and again bit for bit."""
+    x, scale = _rms_inputs(rows, d, x_dtype, scale_dtype, device, seed=rows + d)
+    dy = _rms_inputs(rows, d, x_dtype, scale_dtype, device, seed=rows + d + 1)[0]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    split = rops.backward_plan(rows, d, x.element_size(), sms, **override)
+    assert split.threads <= rops.backward_max_threads(split.vpt)
     before = rops.BACKWARD_LAUNCHES
-    with pytest.raises(ValueError, match="d <= "):
-        rops.rms_norm_backward(x, scale, x)
-    assert rops.BACKWARD_LAUNCHES == before
+    dx, ds = rops.backward_launch(x, scale, dy, split)
+    torch.cuda.synchronize()
+    assert rops.BACKWARD_LAUNCHES == before + 1
+    want_dx, want_ds = chip_smoke._bwd_oracle64(x, scale.float(), dy)
+    assert bool(((dx.double() - want_dx).abs() <= chip_smoke.bwd_dx_bound(want_dx, x_dtype)).all())
+    tol_ds = 1e-5 if scale_dtype == torch.float32 else 2**-7
+    assert (ds.double() - want_ds).abs().max() <= tol_ds * want_ds.abs().max()
+    again = rops.backward_launch(x, scale, dy, split)
+    assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])
+    return split, dx, ds
+
+
+@pytest.mark.parametrize(
+    "rows, d, x_dtype, override",
+    [
+        # each register route at the training shapes
+        (1024, 1024, torch.bfloat16, {"vpt": 1}),
+        (1024, 1024, torch.bfloat16, {"vpt": 2}),
+        (1024, 1024, torch.bfloat16, {"vpt": 4}),
+        (1024, 2048, torch.float32, {"vpt": 1}),
+        (1024, 2048, torch.float32, {"vpt": 2}),
+        (1024, 2048, torch.float32, {"vpt": 4}),
+        # the widest register rows (1024 slots) and the loop route just past them
+        (64, 4096, torch.float32, {}),
+        (64, 8192, torch.bfloat16, {}),
+        (64, 4100, torch.float32, {}),
+        (64, 8200, torch.bfloat16, {}),
+        # fewer rows than groups, one row, rows not whole rounds of the groups
+        (3, 256, torch.bfloat16, {"groups": 8}),
+        (1, 1024, torch.float32, {}),
+        (1, 256, torch.bfloat16, {"groups": 4}),
+        (1000, 256, torch.bfloat16, {"groups": 3}),
+        (1000, 512, torch.float32, {"groups": 5, "blocks_per_sm": 2}),
+        # rows 8-, 4- or 2-byte aligned: the narrower accesses, and the ragged slot
+        (40, 130, torch.float32, {}),
+        (40, 1001, torch.bfloat16, {}),
+        (40, 4097, torch.bfloat16, {"vpt": 0}),
+        # the column sum at fewer than 32 warps (a warp a partial row)
+        (20, 1024, torch.bfloat16, {}),
+    ],
+    ids=str,
+)
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_kernel_at_the_split_boundaries(rows, d, x_dtype, override, scale_dtype, cuda):
+    split, _, _ = _rms_bwd_split_check(rows, d, x_dtype, scale_dtype, cuda, **override)
+    for key, value in override.items():
+        if key in split._fields:
+            assert getattr(split, key) == value
 
 
 def test_rmsnorm_backward_kernel_takes_offset_and_empty_rows(cuda):

@@ -168,22 +168,36 @@ def test_backward_checks_its_inputs():
 
 @pytest.mark.parametrize("rows, d", [(1024, 1024), (1024, 2048), (1024, 3072), (512, 256), (3, 130), (1, 1)])
 def test_backward_shape(rows, d):
-    """Whole warps, about four elements a thread up to 1024 threads, at most
-    two blocks an SM and never more blocks than rows (each block writes one
-    row of the dscale scratch)."""
-    threads, blocks = ops.backward_shape(rows, d, 132)
-    assert threads % 32 == 0 and 32 <= threads <= 1024
-    assert threads >= min(1024, -(-d // 4)) and blocks == min(rows, 264)
+    """The wrapper's split in f32 and bf16: groups of whole warps, at most
+    1024 threads a block (fewer at more slots a thread), at most one block
+    an SM and never more blocks than rows (each block writes one partial
+    row of dscale), every block's rows whole rounds of its groups, and a
+    group that holds its row's 16-byte slots."""
+    for itemsize in (2, 4):
+        split = ops.backward_plan(rows, d, itemsize, 132)
+        assert split.group_threads % 32 == 0
+        assert split.threads <= ops.backward_max_threads(split.vpt)
+        assert split.blocks <= min(rows, 132) and split.rows_per_block % split.groups == 0
+        assert split.group_threads * split.vpt >= -(-d // (16 // itemsize))
 
 
 def test_backward_width_limit_leaves_room_for_the_static_slots():
-    """MAX_BACKWARD_D floats of dynamic shared memory plus the row pass's
-    static reduction slots (red[2][2][MAX_WARPS] floats, MAX_WARPS =
-    MAX_THREADS / 32 in the CUDA source) fit the 227 KB a Hopper block may
-    take, and one float more does not; the C entry's guard reads the same
-    static size."""
+    """No width is refused: past ``BWD_MAX_SLOTS`` slots a row takes the
+    loop route, whose dscale terms go to its partial row in the scratch,
+    so the row pass's shared memory is its static slots alone (the
+    reduction's red[2][2][MAX_WARPS] floats and the groups' parked sums,
+    comb, within the 48 KB a block may take statically) at every width,
+    the first version's widest (57984, its d-float accumulator beside the
+    slots filling 227 KB) and past it."""
     src = (Path(ops.__file__).parent / "csrc" / "rmsnorm.cu").read_text()
     assert "__shared__ float red[2][2][MAX_WARPS];" in src
-    assert "smem > (size_t)(MAX_SMEM - BWD_STATIC_SMEM)" in src
-    static = 2 * 2 * (ops.MAX_THREADS // 32) * 4
-    assert ops.MAX_BACKWARD_D * 4 + static <= 227 * 1024 < (ops.MAX_BACKWARD_D + 1) * 4 + static
+    rows_kernel = src.split("rmsnorm_bwd_rows_kernel")[1].split("rmsnorm_bwd_scale_kernel")[0]
+    assert "extern __shared__" not in rows_kernel
+    assert not hasattr(ops, "MAX_BACKWARD_D")
+    for d in (ops.BWD_MAX_SLOTS * 4, ops.BWD_MAX_SLOTS * 4 + 1, 57984, 57985, 1 << 20):
+        split = ops.backward_plan(5, d, 4, 132)
+        assert split.vpt == (0 if d > ops.BWD_MAX_SLOTS * 4 else 4)
+        static = 2 * 2 * (ops.MAX_THREADS // 32) * 4
+        parked = ops.backward_max_threads(split.vpt) // 2 * split.vpt  # threads x slots, 4 floats
+        comb = 16 * (parked if split.vpt else 1)
+        assert static + comb <= 48 * 1024
