@@ -32,15 +32,17 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    WideResNet-style CNN at its defaults (widths 32/64/128, two blocks per
    stage, 128-wide representations), a linear 256 → 10 head, N_o = 2048:
    3 comm times, 6291456 bytes, purity > 0.5, accuracy > 0.2; each step
-   timed;
+   timed; its epochs cut to B_CLIENT_EPOCHS and B_SERVER_EPOCHS;
 5. few-shot A (Alg. 2, the training path's second round): ``hard/overlap-32``
-   at its budgets (80 client and 40 server epochs): 5 comm times, 177408
+   at its budgets, the client epochs cut A_FEW_EPOCH_CUT-fold (20 client
+   and 40 server epochs): 5 comm times, 177408
    bytes, AUC > 0.6; step ③' (one ``sdpa_estimator`` launch a party, at
    (1, 1184, 32, 16, 16)) recomputed on the CPU's plain route from the same
    reps and heads: estimates within KERNEL_TOL, gate decisions equal
    outside near-ties (counted);
 6. few-shot B: Alg. 2 on one-shot B's configuration, ③' at (1, 22976, 2048,
-   128, 128), ``client_epochs`` cut to FEW_B_CLIENT_EPOCHS: 5 comm times,
+   128, 128), ``client_epochs`` cut to FEW_B_CLIENT_EPOCHS and
+   ``server_epochs`` to B_SERVER_EPOCHS: 5 comm times,
    32099840 bytes, accuracy > 0.2, the same ③' check; each step timed;
 7. baselines A: SplitNN (``run_vanilla``), FedBCD and FedCVT on
    ``hard/overlap-32`` at its 400 iterations: AUC > 0.5 each, the exact
@@ -48,13 +50,13 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    times), ms an iteration; one-shot A's AUC margin and byte ratio over
    vanilla on the same split;
 8. baselines B: the three at one-shot B's configuration, cut to
-   B_BASELINE_ITERATIONS (FedBCD: 300 rounds of Q = 5): accuracy > 0.2,
-   98304000, 19660800 and 196608000 bytes; and B's first 5 SplitNN
-   iterations on the card against the CPU from the same parameters
+   B_BASELINE_ITERATIONS (SplitNN and FedCVT 200, FedBCD 150 rounds of
+   Q = 5): accuracy > 0.2, 13107200, 9830400 and 26214400 bytes; and B's
+   first 5 SplitNN iterations on the card against the CPU from the same parameters
    (losses and parameters within LOGIT_RTOL), beside the CPU against
    itself at one thread. No kernel launches in 7-8;
 9. few-shot + finetune A: ``run_few_shot_finetune`` on ``hard/overlap-32``
-   at its budgets and 200 finetune iterations: 1815808 bytes in 405 comm
+   at few-shot A's budget and 200 finetune iterations: 1815808 bytes in 405 comm
    times, its few-shot pass's AUC equal to few-shot A's, AUC > 0.6; 2
    ``sdpa_estimator`` and 27 ``kmeans`` launches;
 9a. faults: the nine ``fault/*`` members (one 4-party condition; dropouts
@@ -64,7 +66,8 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    one-shot at seeds 0-3, held to the reference gate's rule
    (``fault_families`` in ``benchmarks/frontier_baseline.json``: the twin's
    mean AUC > 0.6, every member's mean at most ``max_oneshot_drop`` below
-   it, 3 survivors on a dropout, 4 elsewhere); few-shot at seed 0 (finite,
+   it, 3 survivors on a dropout, 4 elsewhere); few-shot at seed 0 and a
+   quarter of the client epochs (finite,
    its Δ against the twin printed); SplitNN, FedBCD and FedCVT on the twin
    and the four dropouts at 200 iterations (retry bytes in the ledger);
    every ledger equal to FAULT_LEDGERS; every Eq. 10 reconstruction (⑤,
@@ -90,16 +93,27 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    ``benchmarks/frontier_baseline.json`` (every violation fails the run
    but the FOLD_GATE_REPORTED miss within its margin, printed); fold and
    loop wall times side by side; exact ``kmeans`` (27 a folded group) and Eq. 10 launches;
+9b'. the mesh (``ProtocolConfig.mesh``): one-shot and few-shot on
+   ``hard/overlap-32`` at its budgets over MESH_SEEDS (one fold), unsharded
+   and on ``BatchMesh((cuda:0, cuda:0))``, whose two slots share the card
+   and run the padded (3 entries → 4 in the fits and ③'), split, per-slot
+   and gathered path: the metric and every leaf within MESH_TOL, equal
+   ledgers, ``device_fold`` 2 and 1, and each run's ``kmeans`` (27 a slot)
+   and ``sdpa_estimator`` (few-shot's ③': one a party a slot) launches
+   exact; the visible cards and each run's wall time;
 9c. the scenario catalog: one-shot and few-shot through ``scenarios.build``
    on the card, ``run_one_shot`` and ``run_few_shot`` at seed 0 and the
-   registered sizes and budgets on every non-fault scenario but
+   registered sizes and budgets (a tabular scenario's client epochs cut
+   CATALOG_EPOCH_CUT-fold) on every non-fault scenario but
    ``hard/overlap-32`` (17: the credit overlap sweep, feature skew, label
    noise, 4 and 8 parties, the hard and padded equal-shape pairs, full
    overlap, image halves and patches), each held to its ledger
    (CATALOG_LEDGERS), 3 or 5 comm times and its bar (AUC > 0.6; an image
    scenario's mean accuracy over seeds 0-7, seeds 1-7 as one fold, above
    chance by two standard errors; few-shot skipped on ``hard/overlap-64-eq``, which is
-   ``hard/overlap-64`` row for row); SplitNN beside the sweep at 400
+   ``hard/overlap-64`` row for row, and on ``hard/overlap-64``, whose few-shot
+   [folds]' frontier runs at seeds 0-3 and holds to the same ledger and, at
+   seed 0, the same bar); SplitNN beside the sweep at 400
    iterations (Fig. 6/7: metric and byte ratio at each N_o); ③' against
    the CPU's plain route at widths 7 and 3; ``hard/overlap-32`` with bf16
    reps: 6144 and 93440 bytes, ③' within BF16_STEP3P_TOL;
@@ -198,7 +212,7 @@ G = 1, dh 128 at G = 8, and a 16-slot ring under a window of 16), and
 every row is also held against a float64 plain version.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
-5-6, then 7-8, then 9, then 9a, then 9b, then 9c, then 10-11a, then 13,
+5-6, then 7-8, then 9, then 9a, then 9b, then 9b', then 9c, then 10-11a, then 13,
 then 15, then 16, then 17) and read just after. Output ends
 with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
@@ -260,6 +274,7 @@ from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
 from repro_torch.launch.steps import make_optimizer, make_train_step  # noqa: E402
+from repro_torch.launch.mesh import BatchMesh  # noqa: E402
 from repro_torch.launch.vfl_serve import ServingEngine, serve_traffic, serving_path  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models import moe as zoo_moe  # noqa: E402
@@ -349,17 +364,26 @@ IMAGE_B = scenarios.ScenarioSpec(
     widths=(32, 64, 128),
     blocks_per_stage=2,
 )
-B_CLIENT_EPOCHS = 20
-# Few-shot B: the same configuration with client_epochs cut from 20 to 1 so
-# that the phase stays near a minute: step ⑤' then runs 782 SSL steps a
-# party (N_o + N_u = 25024 labeled rows), step ④ 64. Server epochs uncut (50).
+# One-shot B's and few-shot B's depth, cut so that the script keeps inside
+# its limit on a slow host: client epochs 20 → 2 (one-shot B's step ④ then
+# runs 256 SSL steps, not 2560: 73.1 s of 83.2 on the H100 at 20) and
+# server epochs 50 → 10 (the fits of ⑥, ②' and ⑥' took 9.3-11.1 s each at
+# 50); one-shot B reached accuracy 1.0 at 20 / 50 and few-shot B's one-shot
+# pass 0.9983 at 1 / 50 (PERF.md §6).
+B_CLIENT_EPOCHS = 2
+B_SERVER_EPOCHS = 10
+# Few-shot B: client_epochs cut from 20 to 1: step ⑤' then runs 782 SSL
+# steps a party (N_o + N_u = 25024 labeled rows), step ④ 64.
 FEW_B_CLIENT_EPOCHS = 1
 # The baselines on B: the paper runs 32000 iterations at N_o = 2048
-# (benchmarks/comm_cost.py). Cut to 1500 (vanilla, FedCVT) and 300 rounds of
-# Q = 5 (FedBCD) so that the three stay under about two minutes together: at
-# 2000 they took 138.6 s on an H100 (17.8 ms a vanilla iteration, 31.7 a FedCVT
-# one, 99.1 ms a FedBCD round; PERF.md, PR 21).
-B_BASELINE_ITERATIONS = 1500
+# (benchmarks/comm_cost.py). Cut, so that the script keeps inside its limit
+# on a slow host, to 200 for SplitNN and FedCVT (at 750 the sessions took
+# 15.7 and 25.8 s on the H100, 20.9 and 34.3 ms an iteration; at 200 both
+# reach accuracy 1.0) and to 750 for FedBCD (150 rounds of Q = 5; 115.1 ms
+# a round, accuracy 0.9914): FedBCD's stale local updates spike its loss
+# early, and at 40 rounds its accuracy sat near chance (0.2590 on the card,
+# 0.5798 on the CPU), so there it would hang on the rounding (PERF.md §6).
+B_BASELINE_ITERATIONS = {"vanilla": 200, "fedbcd": 750, "fedcvt": 200}
 # Card ≡ CPU on B's image training path: the first 5 SplitNN iterations from
 # the same parameters on the card and on the CPU (TF32 off): losses within
 # LOGIT_RTOL of the largest loss, final parameters within LOGIT_RTOL of the
@@ -374,7 +398,7 @@ B_CONTRAST_TEST_ROWS = 256
 # iterations // Q rounds; FedCVT ships 2x.
 BASELINE_LEDGERS = {
     "A": {"vanilla": (3276800, 800), "fedbcd": (655360, 160), "fedcvt": (6553600, 800)},
-    "B": {"vanilla": (98304000, 3000), "fedbcd": (19660800, 600), "fedcvt": (196608000, 3000)},
+    "B": {"vanilla": (13107200, 400), "fedbcd": (9830400, 300), "fedcvt": (26214400, 400)},
 }
 # (one-shot, few-shot) ledger bytes of every non-fault catalog scenario at
 # its registered sizes, f32 reps: one-shot 3·K·N·rep·4 over the N aligned
@@ -404,8 +428,9 @@ CATALOG_LEDGERS = {
 # hard/overlap-32 with bf16 reps: half of every rep transfer, p̂ stays f32
 CATALOG_BF16_LEDGERS = {"hard/overlap-32": (6144, 93440)}
 # The [catalog] phase: one-shot and few-shot on every non-fault scenario at
-# seed 0 and its registered sizes and budgets, but hard/overlap-32 (which
-# [one-shot A] and [few-shot A] run in f32; here it runs with bf16 reps).
+# seed 0 and its registered sizes and budgets (CATALOG_EPOCH_CUT below), but
+# hard/overlap-32 (which [one-shot A] and [few-shot A] run in f32; here it
+# runs with bf16 reps).
 CATALOG_RUN = [n for n in CATALOG_LEDGERS if n != "hard/overlap-32"]
 # Bars: a tabular run's AUC (the reference's bar for hard/*) at seed 0. An
 # image scenario's accuracy (4 classes, 100 test rows) cannot be told from
@@ -417,9 +442,18 @@ CATALOG_BARS = {"auc": 0.6}
 IMAGE_SEEDS = range(8)
 IMAGE_CHANCE = 0.25
 # Few-shot is not run on hard/overlap-64-eq: at capacity 64 = N_o it is
-# hard/overlap-64 row for row (an all-ones mask), whose few-shot the phase
-# runs; it saves 6080 ⑤' steps (about 20 s) of the phase.
-CATALOG_ONE_SHOT_ONLY = ("hard/overlap-64-eq",)
+# hard/overlap-64 row for row (an all-ones mask); it saves 6080 ⑤' steps
+# (about 20 s) of the phase. Nor on hard/overlap-64: [folds]' frontier runs
+# its few-shot at seeds 0-3 at the same sizes and budgets, and holds those
+# rows to CATALOG_LEDGERS and, at seed 0, to CATALOG_BARS (36.5 s of the
+# phase on a slow host).
+CATALOG_ONE_SHOT_ONLY = ("hard/overlap-64-eq", "hard/overlap-64")
+# The catalog's tabular runs (credit/*, edge/*, hard/*) at their budgets
+# with the client epochs cut 4-fold (at least 1: hard 80 → 20, credit 8 → 2,
+# edge 4 → 1), the image scenarios uncut: the tabular runs took ~150 s of
+# the phase's 201 on the H100, most of it in ④ and ⑤' (PERF.md §6). The
+# sizes, ledgers and bars are the registered ones.
+CATALOG_EPOCH_CUT = 4
 # Scenarios whose step ③' is recomputed on the CPU's plain route: the
 # widest fused Eq. 10 launches (K − 1 = 7 and 3).
 CATALOG_STEP3P = ("credit/parties-8", "image/patch-4")
@@ -445,6 +479,12 @@ FAULT_NONE_BAR = 0.6
 FAULT_GATE_FILE = os.path.join(ROOT, "benchmarks", "frontier_baseline.json")
 # The iterative baselines run on the fault-free twin and the four dropouts.
 FAULT_ITERATIVE = [FAULT_BASELINE] + [n for n in FAULT_NAMES if "/dropout-" in n]
+# The family's few-shot runs ([faults]' loop and [folds]' group, held to each
+# other) at the members' budgets with the client epochs cut 4-fold (20 → 5:
+# ⑤' 380 SSL steps, not 1520; ~3.5-5 s a run on the H100 at 20), so that
+# the script keeps inside its limit on a slow host. One-shot, which the
+# gate reads, and the baselines keep the full budgets.
+FAULT_FEW_EPOCH_CUT = 4
 # (bytes, comm times) of each member: one-shot and few-shot (independent of
 # the budgets), the baselines at 200 iterations (FedBCD: 40 rounds of Q = 5).
 # A dropped party's missing uploads are not on the wire; a stalled iterative
@@ -514,12 +554,23 @@ def gate_miss_reported(problem: str) -> bool:
 # and the fault family's few-shot ③' folded over C = 9 (width 27: the K − 1 = 3
 # estimates of 9 entries, h_u and H_oᴬ repeated).
 FOLD_SDPA_SHAPES = [((4, 1184, 32, 16, 16), torch.float32), ((27, 592, 32, 16, 16), torch.float32)]
+# [mesh]: one-shot and few-shot on hard/overlap-32 at its budgets over these
+# seeds, unsharded and on a 2-slot mesh of one card (3 entries padded to 4
+# in the fits and ③'), held to MESH_TOL on the metric and every leaf
+MESH_SEEDS = range(3)
+MESH_TOL = 1e-5
 BASELINE_RUNNERS = (
     ("vanilla", baselines.run_vanilla),
     ("fedbcd", baselines.run_fedbcd),
     ("fedcvt", baselines.run_fedcvt),
 )
 FINETUNE_ITERATIONS = 200
+# Few-shot A and few-shot + finetune A at hard/overlap-32's budget with its
+# client epochs cut 4-fold (80 → 20: ⑤' 1520 SSL steps, not 6080; 22.4 s of
+# few-shot A's 23.4 on the H100 at 80), so that the script keeps inside its
+# limit on a slow host. On the CPU the cut moved few-shot's AUC 0.7976 →
+# 0.7931 (PERF.md §6). One-shot A keeps the full budget.
+A_FEW_EPOCH_CUT = 4
 # Few-shot step ③' gate decisions, card vs the CPU's plain route: equal
 # except on rows where a head's top confidence lies within NEAR_GATE of t,
 # or its top two class probabilities within NEAR_GATE of each other (the
@@ -1329,14 +1380,15 @@ def phase_one_shot_a(line: str) -> tuple:
 
 
 def phase_one_shot_b(line: str):
-    """Alg. 1 at full CNN width; returns (the trained artifact, the k-means
-    launches it should have made)."""
+    """Alg. 1 at full CNN width, its epochs cut to B_CLIENT_EPOCHS and
+    B_SERVER_EPOCHS; returns (the trained artifact, the k-means launches it
+    should have made)."""
     t0 = time.perf_counter()
     bundle = scenarios.build(IMAGE_B, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
     split = bundle.split
-    cfg = ProtocolConfig(client_epochs=B_CLIENT_EPOCHS)
+    cfg = ProtocolConfig(client_epochs=B_CLIENT_EPOCHS, server_epochs=B_SERVER_EPOCHS)
     res = run_one_shot(SEED, split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
     purity = res.diagnostics["kmeans_purity"]
     want_bytes = 3 * 2 * IMAGE_B.overlap * IMAGE_B.rep_dim * 4
@@ -1436,14 +1488,12 @@ def _few_shot_line(res, what: str, spec_name: str, line: str) -> dict:
 
 
 def phase_few_shot_a(line: str) -> tuple:
-    """Alg. 2 on hard/overlap-32 at its budgets; returns the (sdpa_estimator,
+    """Alg. 2 on hard/overlap-32 at its budgets, the client epochs cut
+    A_FEW_EPOCH_CUT-fold; returns the (sdpa_estimator,
     kmeans) launches it should have made and its AUC."""
     spec = scenarios.HARD_OVERLAP_32
     bundle = scenarios.build(spec, seed=SEED, device="cuda")
-    cfg = ProtocolConfig(
-        client_epochs=spec.budget("client_epochs", 20),
-        server_epochs=spec.budget("server_epochs", 50),
-    )
+    cfg = _cut_cfg(spec, A_FEW_EPOCH_CUT)
     res = run_few_shot(SEED, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
     check(res.ledger.comm_times() == 5, f"few-shot A: {res.ledger.comm_times()} comm times, not 5")
     check(res.ledger.total_bytes() == 177408, f"few-shot A: {res.ledger.total_bytes()} bytes")
@@ -1455,11 +1505,11 @@ def phase_few_shot_a(line: str) -> tuple:
 
 def phase_few_shot_b(line: str) -> tuple:
     """Alg. 2 at full CNN width, ``client_epochs`` cut to
-    FEW_B_CLIENT_EPOCHS; returns the (sdpa_estimator, kmeans) launches it
+    FEW_B_CLIENT_EPOCHS and ``server_epochs`` to B_SERVER_EPOCHS; returns the (sdpa_estimator, kmeans) launches it
     should have made."""
     bundle = scenarios.build(IMAGE_B, seed=SEED, device="cuda")
     split = bundle.split
-    cfg = ProtocolConfig(client_epochs=FEW_B_CLIENT_EPOCHS)
+    cfg = ProtocolConfig(client_epochs=FEW_B_CLIENT_EPOCHS, server_epochs=B_SERVER_EPOCHS)
     res = run_few_shot(SEED, split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
     n_u = [u.shape[0] for u in split.unaligned]
     rep = 4 * IMAGE_B.rep_dim
@@ -1470,7 +1520,8 @@ def phase_few_shot_b(line: str) -> tuple:
     check(res.metric_name == "accuracy" and res.metric > 0.2, f"few-shot B: {res.metric}")
     print(
         f"[few-shot B] {IMAGE_B.name}: pools {n_u}, client_epochs {cfg.client_epochs} (cut from "
-        f"{B_CLIENT_EPOCHS}), server_epochs {cfg.server_epochs}, ⑤' labeled rows "
+        f"{ProtocolConfig().client_epochs}), server_epochs {cfg.server_epochs} (cut from "
+        f"{ProtocolConfig().server_epochs}), ⑤' labeled rows "
         f"{[IMAGE_B.overlap + n for n in n_u]}"
     )
     out = _few_shot_line(res, "B", IMAGE_B.name, line)
@@ -1593,9 +1644,9 @@ def phase_baselines_b(line: str) -> list:
     to B_BASELINE_ITERATIONS: accuracy > 0.2 each and the exact ledgers; and
     the card ≡ CPU check of B's first SplitNN iterations."""
     bundle = scenarios.build(IMAGE_B, seed=SEED, device="cuda")
-    cfg = baselines.IterativeConfig(iterations=B_BASELINE_ITERATIONS)
     rows = []
     for name, fn in BASELINE_RUNNERS:
+        cfg = baselines.IterativeConfig(iterations=B_BASELINE_ITERATIONS[name])
         res = fn(SEED, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda")
         check(res.metric_name == "accuracy" and res.metric > 0.2, f"B {name}: {res.metric}")
         rows.append(_baseline_row(name, res, "B", IMAGE_B.name, line))
@@ -1608,16 +1659,13 @@ def phase_baselines_b(line: str) -> list:
 
 
 def phase_finetune_a(line: str, few_shot_auc: float) -> tuple:
-    """Few-shot + finetune on hard/overlap-32 at its budgets and 200
+    """Few-shot + finetune on hard/overlap-32 at few-shot A's budget and 200
     finetune iterations: its few-shot pass equals [few-shot A] (same seed,
     same draws), the shared ledger, AUC > 0.6. Returns the (sdpa_estimator,
     kmeans) launches it should have made."""
     spec = scenarios.HARD_OVERLAP_32
     bundle = scenarios.build(spec, seed=SEED, device="cuda")
-    cfg = ProtocolConfig(
-        client_epochs=spec.budget("client_epochs", 20),
-        server_epochs=spec.budget("server_epochs", 50),
-    )
+    cfg = _cut_cfg(spec, A_FEW_EPOCH_CUT)
     res = run_few_shot_finetune(
         SEED, bundle.split, bundle.extractors, bundle.ssl_cfgs, cfg, FINETUNE_ITERATIONS, "cuda"
     )
@@ -1650,6 +1698,21 @@ def _budget_cfg(spec, **kw) -> ProtocolConfig:
         server_epochs=spec.budget("server_epochs", 50),
         **kw,
     )
+
+
+def _cut_cfg(spec, cut: int, **kw) -> ProtocolConfig:
+    """``spec``'s budget with its client epochs cut ``cut``-fold (at least
+    one): a cut of depth, never of width or rows."""
+    cfg = _budget_cfg(spec, **kw)
+    return dataclasses.replace(cfg, client_epochs=max(1, cfg.client_epochs // cut))
+
+
+def _catalog_cfg(spec, **kw) -> ProtocolConfig:
+    """A catalog run's budget: an image scenario's as registered, a tabular
+    one's with its client epochs cut CATALOG_EPOCH_CUT-fold."""
+    if spec.modality == "image":
+        return _budget_cfg(spec, **kw)
+    return _cut_cfg(spec, CATALOG_EPOCH_CUT, **kw)
 
 
 def image_bar(n_test: int) -> float:
@@ -1719,8 +1782,8 @@ def phase_catalog(line: str) -> dict:
     """One-shot and few-shot (one-shot only on CATALOG_ONE_SHOT_ONLY) on
     every scenario of CATALOG_RUN through ``scenarios.build(...,
     device="cuda")``, ``run_one_shot`` and ``run_few_shot`` at seed 0 and the
-    registered sizes and budgets, each held to CATALOG_LEDGERS and
-    CATALOG_BARS; the image scenarios' few-shot also at the other
+    registered sizes and budgets (:func:`_catalog_cfg`), each held to
+    CATALOG_LEDGERS and CATALOG_BARS; the image scenarios' few-shot also at the other
     IMAGE_SEEDS as one ``run_seeds`` fold, each protocol's mean accuracy
     held to :func:`image_bar`;
     ③' against the CPU's plain route on CATALOG_STEP3P; SplitNN on the
@@ -1740,7 +1803,7 @@ def phase_catalog(line: str) -> dict:
 
     for name in CATALOG_RUN:
         bundle = scenarios.build(name, seed=SEED, device="cuda")
-        spec, cfg = bundle.spec, _budget_cfg(bundle.spec)
+        spec, cfg = bundle.spec, _catalog_cfg(bundle.spec)
         one, row1 = _catalog_run(run_one_shot, bundle, cfg, "one-shot", CATALOG_LEDGERS[name][0])
         want["runs"].append(row1)
         count(bundle.split, cfg, False)
@@ -1812,7 +1875,7 @@ def phase_catalog(line: str) -> dict:
         del one, few, bundle
     for name, (one_b, few_b) in CATALOG_BF16_LEDGERS.items():
         bundle = scenarios.build(name, seed=SEED, device="cuda")
-        cfg = _budget_cfg(bundle.spec, rep_dtype=torch.bfloat16)
+        cfg = _catalog_cfg(bundle.spec, rep_dtype=torch.bfloat16)
         _, row1 = _catalog_run(run_one_shot, bundle, cfg, "one-shot", one_b)
         few, row2 = _catalog_run(run_few_shot, bundle, cfg, "few-shot", few_b)
         want["runs"] += [row1, row2]
@@ -1861,12 +1924,13 @@ def check_reconstructions(res, what: str) -> tuple:
 
 def _fault_run(runner, name: str, seed: int, protocol: str) -> tuple:
     """One fault/* run of ``protocol`` on the card at the member's sizes and
-    budgets, held to FAULT_LEDGERS, a finite metric, its survivors (K − 1
-    under a dropout, else K) and its reconstructions. Returns (the result,
+    budgets (few-shot's client epochs cut FAULT_FEW_EPOCH_CUT-fold), held to
+    FAULT_LEDGERS, a finite metric, its survivors (K − 1 under a dropout,
+    else K) and its reconstructions. Returns (the result,
     the Eq. 10 launches it should have made, its wall seconds)."""
     bundle = scenarios.build(name, seed=seed, device="cuda")
     spec, split = bundle.spec, bundle.split
-    cfg = _budget_cfg(spec)
+    cfg = _cut_cfg(spec, FAULT_FEW_EPOCH_CUT) if protocol == "few-shot" else _budget_cfg(spec)
     t0 = time.perf_counter()
     res = runner(seed, split, bundle.extractors, bundle.ssl_cfgs, cfg, device="cuda", fault=spec.fault)
     torch.cuda.synchronize()
@@ -2172,7 +2236,7 @@ def phase_folds(line: str, flt: dict) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    res, wall_few, faults = _fold_group(run_few_shot, [SEED], flt, cfg)
+    res, wall_few, faults = _fold_group(run_few_shot, [SEED], flt, _cut_cfg(spec, FAULT_FEW_EPOCH_CUT))
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     eq10_few = fold_eq10_launches(faults, pools, 4, True)
     out["sdpa"] += eq10_few
@@ -2223,6 +2287,15 @@ def phase_folds(line: str, flt: dict) -> dict:
         out["kmeans"] += 2 * km_run  # one-shot and few-shot: one search each
         out["sdpa"] += sum(1 for u in bundles[0].split.unaligned if u.shape[0] > 0)  # ③'
     frontier_s = time.perf_counter() - t0
+    for r in rows:  # the few-shot runs the catalog leaves to the frontier
+        if r.get("aggregate") or r["method"] != "few_shot" or r["scenario"] not in CATALOG_ONE_SHOT_ONLY:
+            continue
+        what = f"folds: frontier {r['scenario']} few-shot seed {r['seed']}"
+        got = (r["comm_bytes"], r["comm_times"])
+        check(got == (CATALOG_LEDGERS[r["scenario"]][1], 5), f"{what}: (bytes, comm times) {got}")
+        if r["seed"] == SEED:
+            bar = CATALOG_BARS[r["metric_name"]]
+            check(r["metric"] > bar, f"{what}: {r['metric_name']} {r['metric']} not above {bar}")
     problems = torch_frontier.check_gate(rows)
     reported = [p for p in problems if gate_miss_reported(p)]
     for p in problems:
@@ -2248,6 +2321,87 @@ def phase_folds(line: str, flt: dict) -> dict:
                                 "card": line}}))
     out.update(one_shot_wall=wall, few_shot_wall=wall_few, frontier_s=frontier_s,
                iterative_s=iterative_s)
+    return out
+
+
+def _mesh_leaves(res) -> list:
+    """Every trained leaf of a protocol result: the parties' extractors and
+    heads, the joint classifier and few-shot's aux classifiers."""
+    mods = [m for c in res.clients for m in (c.extractor, c.head)] + [res.server.classifier]
+    return [p.detach() for m in mods + list(res.server.aux_classifiers) for p in m.parameters()]
+
+
+def phase_mesh(line: str) -> dict:
+    """``ProtocolConfig.mesh`` on the card: one-shot and few-shot on
+    ``hard/overlap-32`` at its budgets over MESH_SEEDS, unsharded and on
+    ``BatchMesh((cuda:0, cuda:0))``, whose slots share the card and still run
+    the padded, split, per-slot and gathered path. Each sharded run's metric
+    and every leaf within MESH_TOL of the unsharded one's, equal ledgers,
+    ``device_fold`` 2 and 1, and each run's ``kmeans`` and
+    ``sdpa_estimator`` launches exact: one a slot per assignment and per
+    estimate. Returns the launches the phase made."""
+    spec = scenarios.HARD_OVERLAP_32
+    seeds = list(MESH_SEEDS)
+    bundles = [scenarios.build(spec, seed=s, device="cuda") for s in seeds]
+    cfg = _budget_cfg(spec)
+    card = torch.device("cuda", 0)
+    mesh = BatchMesh((card, card))
+    km_run = cfg.kmeans_iters + 2  # one search a pass: Lloyd iterations, inertia, final
+    eq10 = sum(1 for u in bundles[0].split.unaligned if u.shape[0] > 0)  # ③': one a party
+    out = {"sdpa": 0, "kmeans": 0, "walls": {}, "launches": {}}
+    worst = 0.0
+    for protocol, runner in (("one-shot", run_one_shot), ("few-shot", run_few_shot)):
+        runs = {}
+        for slots, run_cfg in ((1, cfg), (2, dataclasses.replace(cfg, mesh=mesh))):
+            what = f"mesh {protocol} on {slots} slot(s)"
+            torch.cuda.synchronize()
+            km0, sd0 = kops.LAUNCHES, ops.LAUNCHES
+            t0 = time.perf_counter()
+            res = run_seeds(
+                runner, seeds, [b.split for b in bundles], [b.extractors for b in bundles],
+                [b.ssl_cfgs for b in bundles], run_cfg, device="cuda",
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = (kops.LAUNCHES - km0, ops.LAUNCHES - sd0)
+            want = (slots * km_run, slots * eq10 if protocol == "few-shot" else 0)
+            check(got == want, f"{what}: (kmeans, sdpa_estimator) launches {got}, not {want}")
+            folds = {(r.diagnostics["device_fold"], r.diagnostics["engine_path"]) for r in res}
+            check(folds == {(slots, "vmap")}, f"{what}: (device_fold, engine_path) {folds}")
+            check(all(math.isfinite(r.metric) for r in res), f"{what}: metrics {[r.metric for r in res]}")
+            out["sdpa"] += got[1]
+            out["kmeans"] += got[0]
+            out["walls"][f"{protocol} {slots}"] = wall
+            out["launches"][f"{protocol} {slots}"] = got
+            runs[slots] = res
+        for seed, a, b in zip(seeds, runs[2], runs[1]):
+            what = f"mesh {protocol} seed {seed}"
+            for key in ("total_bytes", "comm_times", "by_tag"):
+                ka, kb = getattr(a.ledger, key)(), getattr(b.ledger, key)()
+                check(ka == kb, f"{what}: ledger {key} {ka} sharded, {kb} unsharded")
+            err = abs(a.metric - b.metric)
+            la, lb = _mesh_leaves(a), _mesh_leaves(b)
+            check(len(la) == len(lb), f"{what}: {len(la)} leaves against {len(lb)}")
+            err = max([err] + [(p - q).abs().max().item() for p, q in zip(la, lb)])
+            check(err <= MESH_TOL, f"{what}: sharded vs unsharded max|Δ| {err} > {MESH_TOL}")
+            worst = max(worst, err)
+        a, b = runs[2][0], runs[1][0]
+        sharded, single = out["launches"][f"{protocol} 2"], out["launches"][f"{protocol} 1"]
+        print(
+            f"[mesh] {spec.name} {protocol}, seeds {seeds[0]}-{seeds[-1]}: {a.metric_name} "
+            f"{[round(r.metric, 4) for r in runs[2]]} | 2 slots of {card} ≡ unsharded: metric and "
+            f"every leaf within {MESH_TOL}, ledgers equal ({a.ledger.total_bytes()} bytes in "
+            f"{a.ledger.comm_times()} comm times) | device_fold {a.diagnostics['device_fold']} / "
+            f"{b.diagnostics['device_fold']} | (kmeans, sdpa_estimator) launches {sharded} / "
+            f"{single} | wall {out['walls'][protocol + ' 2']:.2f} s sharded, "
+            f"{out['walls'][protocol + ' 1']:.2f} s unsharded"
+        )
+    print(
+        f"[mesh] {torch.cuda.device_count()} visible card(s); the mesh's 2 slots share {card} "
+        f"(the cost of the slots, not a speed-up) | largest sharded vs unsharded difference "
+        f"{worst:.3e} | {line}"
+    )
+    out["max_err"] = worst
     return out
 
 
@@ -3373,6 +3527,23 @@ def main() -> int:
     )
     del flt
 
+    # ---- the mesh over the folds: counters from 0, read right after
+    torch.cuda.empty_cache()
+    _zero_counters()
+    t0 = time.time()
+    msh = phase_mesh(line)
+    torch.cuda.synchronize()
+    mesh_s = time.time() - t0
+    msh_sdpa, msh_km = ops.LAUNCHES, kops.LAUNCHES
+    check(msh_sdpa == msh["sdpa"], f"mesh: sdpa_estimator launched {msh_sdpa} times, expected {msh['sdpa']}")
+    check(msh_km == msh["kmeans"], f"mesh: kmeans launched {msh_km} times, expected {msh['kmeans']}")
+    check(rops.LAUNCHES == dops.LAUNCHES == 0, "a zoo kernel launched on the mesh")
+    print(
+        f"[path] mesh: sdpa_estimator launches {msh_sdpa} (expected {msh['sdpa']}: few-shot's ③', "
+        f"one a party a slot), kmeans launches {msh_km} (expected {msh['kmeans']}: "
+        f"{ProtocolConfig().kmeans_iters + 2} a slot a pass) in {mesh_s:.1f} s"
+    )
+
     # ---- the scenario catalog: counters from 0, read right after
     torch.cuda.empty_cache()
     ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
@@ -3461,7 +3632,7 @@ def main() -> int:
         f"{few_shot_s:.1f} s; baselines A {baselines_a_s:.1f} s, baselines B {baselines_b_s:.1f} "
         f"s, few-shot + finetune A {finetune_s:.1f} s, faults {faults_s:.1f} s, folds "
         f"{folds_s:.1f} s (the iterative folds {fld['iterative_s']:.1f} s, the frontier "
-        f"{fld['frontier_s']:.1f} s), catalog "
+        f"{fld['frontier_s']:.1f} s), mesh {mesh_s:.1f} s, catalog "
         f"{catalog_s:.1f} s; the zoo's "
         f"share: kernel phases "
         f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s, "
@@ -3486,14 +3657,14 @@ def main() -> int:
             "sdpa_estimator",
             "src/repro_torch/kernels/sdpa_estimator/csrc/sdpa_estimator.cu",
             "src/repro/kernels/sdpa_estimator/kernel.py:38",
-            launches + few_sdpa + ft_sdpa + cat_sdpa + flt_sdpa + fld_sdpa,
+            launches + few_sdpa + ft_sdpa + cat_sdpa + flt_sdpa + fld_sdpa + msh_sdpa,
             sdpa_row,
         ),
         entry(
             "kmeans",
             "src/repro_torch/kernels/kmeans/csrc/kmeans_assign.cu",
             "src/repro/kernels/kmeans/kernel.py:32",
-            km_launches + few_km + ft_km + cat_km + flt_km + fld_km,
+            km_launches + few_km + ft_km + cat_km + flt_km + fld_km + msh_km,
             kmeans_row,
         ),
         entry(

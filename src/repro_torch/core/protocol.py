@@ -55,12 +55,20 @@ draws exactly what ``run_one_shot`` draws at the same seed, and an entry of
 a fold exactly what its single-seed run draws: every entry keeps its own
 generators, and the stacked steps take draws made beforehand, entry after
 entry, in the single-seed order.
+
+``ProtocolConfig.mesh`` (None, a slot count or a ``launch.mesh.BatchMesh``)
+shards every stacked stage of a pass over the mesh's slots
+(``engine.parallel``): step ③'s search, the SSL sessions of ④ and ⑤', the
+server fits and ③''s estimates. Every entry still draws what its unsharded
+run draws, so the results and ledgers equal the unsharded fold's;
+``device_fold`` records the slot count where the SSL sessions ran stacked
+and 1 where they ran by the per-party loop.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import asdict, dataclass, field
+from dataclasses import asdict, dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -75,8 +83,9 @@ from repro_torch.core.server import VFLServer, fit_aux_classifiers_seeds, train_
 from repro_torch.core.ssl import SSLConfig
 from repro_torch.data.vertical import VerticalSplit
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.engine import batched
+from repro_torch.engine import batched, parallel
 from repro_torch.engine.local_ssl import PartyTask, SSLHParams, schedule_steps, seed_from
+from repro_torch.launch.mesh import BatchMesh
 from repro_torch.scenarios.faults import (
     POINT_ROUND2,
     POINT_SSL,
@@ -105,6 +114,7 @@ class ProtocolConfig:
     unlabeled_ratio: int = 2
     engine_mode: str = "auto"  # "auto" | "vmap" | "python": the SSL sessions' path
     rep_dtype: torch.dtype = torch.float32
+    mesh: object = None  # None | slot count | BatchMesh: the stacked stages' slots
 
     def ssl_hparams(self) -> SSLHParams:
         return SSLHParams(
@@ -144,6 +154,9 @@ class VFLResult:
         if self.cfg is not None:
             protocol = asdict(self.cfg)
             protocol["rep_dtype"] = str(self.cfg.rep_dtype).removeprefix("torch.")
+            # where the stacked stages ran, like the device: the trained
+            # state does not depend on it
+            protocol["mesh"] = None
         return from_state(
             [c.extractor for c in self.clients],
             [c.head for c in self.clients],
@@ -285,12 +298,19 @@ class _Entry:
 @dataclass
 class _Fold:
     """The entries of one pass, the shared ledger of an unfaulted fold (None
-    when every entry logs to its own), the config and the step clock."""
+    when every entry logs to its own), the config, the step clock and the
+    resolved mesh of the stacked stages (None: unsharded)."""
 
     entries: List[_Entry]
     shared: Optional[CommLedger]
     cfg: ProtocolConfig
     clock: _StepClock
+    mesh: Optional[BatchMesh] = None
+
+    def device_fold(self, path: str) -> int:
+        """The slot count an SSL session on ``path`` folded over: the
+        mesh's on the stacked path, 1 on the per-party loop."""
+        return parallel.device_fold(self.mesh) if path == "vmap" else 1
 
     @property
     def faulted(self) -> bool:
@@ -343,7 +363,8 @@ def _fold(
     generators seeded from its seed (``_generators``). ``faults`` (one
     FaultSpec or None per entry) gives every entry a ledger of its own;
     without it the entries share one prototype ledger. ``ledger`` is the
-    one ledger of a single-entry pass."""
+    one ledger of a single-entry pass. ``cfg.mesh`` resolves here, on
+    ``device``'s type; a mesh of the other type is refused."""
     if not (len(splits) == len(extractors) == len(ssl_cfgs) == len(seeds)):
         raise ValueError("a fold needs one split, extractor list and SSL-config list per seed")
     if faults is not None and len(faults) != len(seeds):
@@ -351,6 +372,9 @@ def _fold(
     if ledger is not None and len(seeds) != 1:
         raise ValueError("a ledger can be given to a single-entry pass only")
     dev = resolve_device(device)
+    mesh = parallel.resolve_mesh(cfg.mesh, dev)
+    if mesh is not None and mesh.devices[0].type != dev.type:
+        raise ValueError(f"a mesh of {mesh.devices[0].type} slots cannot shard a fold on {dev}")
     shared = None if faults is not None else (ledger if ledger is not None else CommLedger())
     entries = []
     for i, seed in enumerate(seeds):
@@ -362,7 +386,7 @@ def _fold(
                 None if faults is None else faults[i], host, draws, own,
             )
         )
-    return _Fold(entries, shared, cfg, _StepClock(dev))
+    return _Fold(entries, shared, cfg, _StepClock(dev), mesh)
 
 
 def _one_shot_pass(fold: _Fold) -> List[VFLResult]:
@@ -371,7 +395,7 @@ def _one_shot_pass(fold: _Fold) -> List[VFLResult]:
     k-means search over all S·C·K gradient matrices, step ④ one stacked
     SSL session (``engine.batched``), step ⑥ stacked fits. Leaves each
     entry's ⑤ uploads (the server's view, few-shot's H_o) in ``reps``."""
-    cfg, clock, entries = fold.cfg, fold.clock, fold.entries
+    cfg, clock, entries, mesh = fold.cfg, fold.clock, fold.entries, fold.mesh
     dev = entries[0].split.labels.device
     num_classes = entries[0].split.num_classes
     num_parties = fold.num_parties
@@ -414,6 +438,7 @@ def _one_shot_pass(fold: _Fold) -> List[VFLResult]:
         KMEANS_RESTARTS,
         generators=[e.draws for e in entries],
         info=km_info,
+        mesh=mesh,
     )
     clock.lap("3_kmeans")
 
@@ -435,7 +460,7 @@ def _one_shot_pass(fold: _Fold) -> List[VFLResult]:
         tasks_all.append(tasks)
     seeds0 = [[seed_from(e.host) for _ in tasks] for e, tasks in zip(entries, tasks_all)]
     metrics_all, paths = batched.train_clients_ssl_seeds(
-        tasks_all, hp, seeds0, [e.draws for e in entries], cfg.engine_mode
+        tasks_all, hp, seeds0, [e.draws for e in entries], cfg.engine_mode, mesh
     )
     clock.lap("4_local_ssl")
 
@@ -462,6 +487,7 @@ def _one_shot_pass(fold: _Fold) -> List[VFLResult]:
         batch_size=cfg.batch_size,
         learning_rate=cfg.server_lr,
         generators=[e.host for e in entries],
+        mesh=mesh,
     )
     clock.lap("6_server_fit")
 
@@ -480,7 +506,7 @@ def _one_shot_pass(fold: _Fold) -> List[VFLResult]:
             "seed_fold": len(entries),
             "kernel_fold": km_info.get("fold", 1),
             "engine_path": path,
-            "device_fold": 1,
+            "device_fold": fold.device_fold(path),
         }
         if "fallback" in km_info:
             ent.diags["kernel_fallback"] = km_info["fallback"]
@@ -528,8 +554,9 @@ def run_one_shot(
     given; the S = 1 case of :func:`run_seeds`. The split is moved to
     ``device`` first. ``diagnostics`` carries the k-means purity, the SSL
     sessions' last metrics and steps, each step's time (``step_ms``), and
-    the fold record (``seed_fold``, ``kernel_fold``, ``engine_path``,
-    ``device_fold``); under a fault also ``faults.fault_diags``'s keys and
+    the fold record (``seed_fold``, ``kernel_fold``, ``engine_path``, and
+    ``device_fold``: the mesh's slot count where ④ ran stacked over
+    ``cfg.mesh``, else 1); under a fault also ``faults.fault_diags``'s keys and
     ``fault_reconstruct``, each Eq. 10 reconstruction's inputs and output
     (⑤, then the evaluation)."""
     return _one_shot_seeds(
@@ -611,7 +638,7 @@ def _few_shot_pass(fold: _Fold) -> List[VFLResult]:
     round trip, each step over all entries at once (the aux fits stacked,
     ③' one ``sdpa_estimator`` launch a party over the stacked axis, ⑤' one
     stacked session, ⑥' stacked fits). See :func:`run_few_shot`."""
-    cfg, clock, entries = fold.cfg, fold.clock, fold.entries
+    cfg, clock, entries, mesh = fold.cfg, fold.clock, fold.entries, fold.mesh
     ones = _one_shot_pass(fold)
     num_parties = fold.num_parties
     h_o_all = [e.reps for e in entries]  # the ⑤ uploads: the server's H_o
@@ -638,6 +665,7 @@ def _few_shot_pass(fold: _Fold) -> List[VFLResult]:
         batch_size=cfg.batch_size,
         learning_rate=cfg.server_lr,
         generators=[e.host for e in entries],
+        mesh=mesh,
     )
     clock.lap("2p_aux_fit")
 
@@ -651,7 +679,7 @@ def _few_shot_pass(fold: _Fold) -> List[VFLResult]:
         ests: List[torch.Tensor] = []
         h_u_stack = torch.stack([h_u[k] for h_u in h_u_all])
         probs = batched.fewshot_probs_seeds(
-            servers, k, h_u_stack, h_o_stacks, cfg.fewshot_threshold, ests
+            servers, k, h_u_stack, h_o_stacks, cfg.fewshot_threshold, ests, mesh
         )
         for e in range(len(entries)):
             probs_all[e].append(probs[e])
@@ -684,7 +712,7 @@ def _few_shot_pass(fold: _Fold) -> List[VFLResult]:
         takes_all.append(takes)
     seeds0 = [[seed_from(e.host) for _ in tasks] for e, tasks in zip(entries, tasks_all)]
     metrics_all, paths = batched.train_clients_ssl_seeds(
-        tasks_all, hp, seeds0, [e.draws for e in entries], cfg.engine_mode
+        tasks_all, hp, seeds0, [e.draws for e in entries], cfg.engine_mode, mesh
     )
     clock.lap("5p_local_ssl")
 
@@ -708,6 +736,7 @@ def _few_shot_pass(fold: _Fold) -> List[VFLResult]:
         batch_size=cfg.batch_size,
         learning_rate=cfg.server_lr,
         generators=[e.host for e in entries],
+        mesh=mesh,
     )
     clock.lap("6p_server_refit")
 
@@ -732,6 +761,7 @@ def _few_shot_pass(fold: _Fold) -> List[VFLResult]:
             fewshot_ssl_steps=[schedule_steps(t.x_labeled.shape[0], hp) for t in tasks_all[i]],
             sdpa_fold=len(entries),
             engine_path=paths[i],
+            device_fold=fold.device_fold(paths[i]),
         )
         results.append(
             VFLResult(name, metric, ent.ledger, ent.clients, ent.server, tuple(ent.specs), cfg, diags)
@@ -943,7 +973,9 @@ def run_scenarios_seeds(
     differ in shape and unregistered runners go scenario by scenario
     (``scenario_fold`` 1); :func:`run_seeds`
     is the C = 1 case. ``faults`` is an optional C×S grid of FaultSpecs,
-    carried as per-entry data. Per-seed state kwargs are refused."""
+    carried as per-entry data. Per-seed state kwargs are refused. A
+    protocol config's ``mesh`` is resolved once, here, and shards every
+    pass of the sweep (``device_fold``)."""
     from repro_torch.core import runners as registry  # deferred: the registry imports this module
 
     num_scenarios = len(seeds)
@@ -963,6 +995,8 @@ def run_scenarios_seeds(
             )
     entry = registry.resolve(runner)
     registry.reject_stateful_kwargs("run_scenarios_seeds", runner_kwargs, entry)
+    if isinstance(cfg, ProtocolConfig) and cfg.mesh is not None:
+        cfg = replace(cfg, mesh=parallel.resolve_mesh(cfg.mesh, resolve_device(device)))
     faults = runner_kwargs.pop("faults", None)
     if faults is not None:
         if len(faults) != num_scenarios or any(len(row) != num_seeds for row in faults):
@@ -1024,7 +1058,8 @@ def run_seeds(
     ledgers (each result holds its own copy). The iterative baselines
     (``run_vanilla``, ``run_fedcvt``, ``run_fedbcd``) fold their S sessions
     into one stacked session. ``faults`` is an optional per-seed list; per-seed
-    state kwargs (``clients``, ``server``, ``ledger``) are refused."""
+    state kwargs (``clients``, ``server``, ``ledger``) are refused. A
+    ``ProtocolConfig.mesh`` shards the protocol folds' stacked stages."""
     if not (len(splits) == len(extractors) == len(ssl_cfgs) == len(seeds)):
         raise ValueError("run_seeds needs one split / extractor list / ssl-config list per seed")
     from repro_torch.core import runners as registry

@@ -12,8 +12,10 @@ frontier's per-(scenario, method, seed) rows are built by
 Training rows add the paper's communication columns (``comm_bytes``,
 ``comm_times``) and the whitelisted execution diagnostics
 (:data:`DIAGNOSTIC_KEYS`). Free-form ``context`` keys flatten into the
-emitted dict but may never shadow a core key: a clash raises. The port runs
-on one card, so ``device_fold`` is always 1.
+emitted dict but may never shadow a core key: a clash raises.
+``device_fold`` is the slot count of the batch mesh that a protocol fold's
+SSL sessions ran stacked over (``ProtocolConfig.mesh``), 1 without a mesh,
+on the per-party loop and in the iterative baselines.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ over the numpy-seeded schedule of ``_fit_schedule`` (clip 5.0, SGD with
 momentum 0.9). :func:`train_classifier_seeds` and
 :func:`fit_aux_classifiers_seeds` are the folds' form: every entry draws its
 heads and schedule seeds from its own CPU generator, in the single-seed
-order, and the fits train stacked (``engine.batched.fit_sessions_batched``).
+order, and the fits train stacked (``engine.batched.fit_sessions_batched``),
+sharded over a batch mesh when one is given.
 """
 
 from __future__ import annotations
@@ -180,13 +181,16 @@ def train_classifier_seeds(
     learning_rate: float = 0.01,
     *,
     generators: Sequence[torch.Generator],
+    mesh=None,
 ) -> None:
     """:meth:`VFLServer.train_classifier` for every entry of a fold: entry
     e's fresh f_c and schedule come from ``generators[e]``, and the fits
-    train stacked."""
+    train stacked (over ``mesh``'s slots, when given)."""
     hs = [concat_reps(reps).detach() for reps in reps_per_seed]
     fresh = [_fresh_fit(srv, h, epochs, batch_size, g) for srv, h, g in zip(servers, hs, generators)]
-    fit_sessions_batched([c for c, _ in fresh], hs, labels_per_seed, [s for _, s in fresh], learning_rate)
+    fit_sessions_batched(
+        [c for c, _ in fresh], hs, labels_per_seed, [s for _, s in fresh], learning_rate, mesh
+    )
     for srv, (clf, _) in zip(servers, fresh):
         srv.classifier = clf
 
@@ -200,10 +204,12 @@ def fit_aux_classifiers_seeds(
     learning_rate: float = 0.01,
     *,
     generators: Sequence[torch.Generator],
+    mesh=None,
 ) -> None:
     """:meth:`VFLServer.fit_aux_classifiers` for every entry of a fold: entry
     e's f_c^k and schedules come from ``generators[e]`` party by party, and
-    all S·C·K fits train stacked (one session a shape)."""
+    all S·C·K fits train stacked (one session a shape, over ``mesh``'s
+    slots when given)."""
     models, xs, ys, scheds = [], [], [], []
     for srv, reps, labels, g in zip(servers, reps_per_seed, labels_per_seed, generators):
         fresh = [_fresh_fit(srv, h.detach(), epochs, batch_size, g) for h in reps]
@@ -212,4 +218,4 @@ def fit_aux_classifiers_seeds(
         xs += [h.detach() for h in reps]
         ys += [labels] * len(reps)
         scheds += [s for _, s in fresh]
-    fit_sessions_batched(models, xs, ys, scheds, learning_rate)
+    fit_sessions_batched(models, xs, ys, scheds, learning_rate, mesh)

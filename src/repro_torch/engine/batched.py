@@ -27,6 +27,13 @@ generators, and every draw is made in the order the single-seed loop makes
 it, so a fold equals a loop of single-seed runs up to the rounding of
 batched products. Built steps are cached in ``engine.sessions`` under keys
 without batch width, so later seeds and scenarios add no fresh builds.
+
+Every stacked stage takes a ``mesh`` (``engine.parallel``): the SSL
+session, the k-means search, the Eq. 10 estimates and the server fits then
+run slot by slot over the entry axis, padded with copies of entry 0 and
+stripped before anything is written back, so a sharded fold equals the
+unsharded one entry by entry. The per-entry loops have no stacked axis and
+ignore it.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from torch import nn
 from torch.func import grad, stack_module_state, vmap
 
 from repro_torch.core import clustering
-from repro_torch.engine import dispatch, sessions
+from repro_torch.engine import dispatch, parallel, sessions
 from repro_torch.engine.local_ssl import (
     PartyTask,
     SSLHParams,
@@ -73,6 +80,7 @@ def train_clients_ssl_seeds(
     seeds0_per_seed: Sequence[Sequence[int]],
     generators: Sequence[torch.Generator],
     mode: str = "auto",
+    mesh=None,
 ) -> Tuple[List[List[Dict[str, float]]], List[str]]:
     """Every entry's every party's SSL session; returns per-entry metric
     lists and the path each entry trained on.
@@ -81,8 +89,9 @@ def train_clients_ssl_seeds(
     another, as the single-seed loop does, before anything trains. One
     entry is :func:`local_ssl.train_clients_ssl` itself. Several entries
     fold into one stacked session when all their tasks are homogeneous,
-    under ``mode`` "vmap" or where ``local_ssl.stack_pays`` under "auto";
-    else each entry runs on its own."""
+    under ``mode`` "vmap" or where ``local_ssl.stack_pays`` (of the real
+    entries) under "auto"; else each entry runs on its own. A ``mesh``
+    shards whichever stacked session runs."""
     if mode not in ("auto", "vmap", "python"):
         raise ValueError(f"unknown engine mode {mode!r}")
     num_seeds = len(tasks_per_seed)
@@ -91,7 +100,9 @@ def train_clients_ssl_seeds(
         for tasks, gen in zip(tasks_per_seed, generators)
     ]
     if num_seeds == 1:
-        metrics, path = train_clients_ssl(tasks_per_seed[0], hp, seeds0_per_seed[0], draws[0], mode)
+        metrics, path = train_clients_ssl(
+            tasks_per_seed[0], hp, seeds0_per_seed[0], draws[0], mode, mesh
+        )
         return [metrics], [path]
     k = len(tasks_per_seed[0])
     flat = flatten_seed_tasks(tasks_per_seed)
@@ -105,12 +116,12 @@ def train_clients_ssl_seeds(
     pays = stack_pays(sessions.module_spec(flat[0].extractor), k, num_seeds)
     if homogeneous and (mode == "vmap" or (mode == "auto" and pays)):
         metrics = train_parties_ssl_stacked(
-            flat, hp, flatten_seed_tasks(seeds0_per_seed), flatten_seed_tasks(draws)
+            flat, hp, flatten_seed_tasks(seeds0_per_seed), flatten_seed_tasks(draws), mesh
         )
         return unflatten_seed_results(metrics, num_seeds, k), ["vmap"] * num_seeds
     out, paths = [], []
     for tasks, seeds0, d in zip(tasks_per_seed, seeds0_per_seed, draws):
-        metrics, path = train_clients_ssl(tasks, hp, seeds0, d, mode)
+        metrics, path = train_clients_ssl(tasks, hp, seeds0, d, mode, mesh)
         out.append(metrics)
         paths.append(path)
     return out, paths
@@ -136,8 +147,10 @@ def _note_ragged_fallback(what: str) -> None:
 def _search_fn(num_classes: int, iters: int, restarts: int) -> Callable:
     """Step ③'s k-means search over a stack: labels of (B, N, d) gradients."""
 
-    def search(stacked: torch.Tensor, draws: clustering.SeedingDraws) -> torch.Tensor:
-        return dispatch.pseudo_labels_batched(stacked, num_classes, iters, restarts, draws=draws)
+    def search(stacked: torch.Tensor, draws: clustering.SeedingDraws, mesh) -> torch.Tensor:
+        return dispatch.pseudo_labels_batched(
+            stacked, num_classes, iters, restarts, draws=draws, mesh=mesh
+        )
 
     return search
 
@@ -161,6 +174,7 @@ def pseudo_labels_seeds(
     *,
     generators: Sequence[torch.Generator],
     info: Optional[dict] = None,
+    mesh=None,
 ) -> List[List[torch.Tensor]]:
     """Step ③ for every entry's K gradient matrices → per-entry lists of
     pseudo-labels (N,) int64.
@@ -171,7 +185,9 @@ def pseudo_labels_seeds(
     one ``kmeans`` launch over all S·C·K·R restarts. Otherwise each entry
     runs on its own (:func:`_entry_pseudo_labels`), recorded in ``info``
     (``{"fold": 1, "fallback": reason}``) and logged once; on the folded
-    path ``info["fold"]`` is S·C·K."""
+    path ``info["fold"]`` is S·C·K. A ``mesh`` shards the one search: the
+    S·C·K matrices and their draws are padded with copies of the first's,
+    each slot searches its slice, and the labels are stripped back."""
     flat = flatten_seed_tasks(grads_per_seed)
     num_parties = len(grads_per_seed[0])
     uniform = len({len(g) for g in grads_per_seed}) == 1
@@ -188,15 +204,18 @@ def pseudo_labels_seeds(
     per_entry = [
         clustering.draw_seeding(gen, num_parties, restarts, n, num_classes, dev) for gen in generators
     ]
+    mesh = parallel.resolve_mesh(mesh, dev)
+    pad = parallel.pad_width(len(flat), mesh)
     draws = clustering.SeedingDraws(
         torch.cat([d.first for d in per_entry]), torch.cat([d.u for d in per_entry])
     )
     search = sessions.cached_session(
         "kmeans",
-        ("search", num_classes, kmeans_iters, restarts),
+        ("search", num_classes, kmeans_iters, restarts, parallel.mesh_key(mesh)),
         lambda: _search_fn(num_classes, kmeans_iters, restarts),
     )
-    labels = search(torch.stack(flat).float(), draws)
+    stacked = parallel.pad_stacked(torch.stack(flat).float(), pad)
+    labels = parallel.strip_stacked(search(stacked, parallel.pad_stacked(draws, pad), mesh), len(flat))
     if info is not None:
         info["fold"] = len(flat)
     return unflatten_seed_results(list(labels), len(grads_per_seed), num_parties)
@@ -219,6 +238,7 @@ def fewshot_probs_seeds(
     h_o_stacks: Sequence[torch.Tensor],
     threshold: float,
     estimates_out: Optional[list] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Few-shot ③' for party k over the stacked entry axis: the Eq. 10
     estimates of every missing party (one ``sdpa_estimator`` launch, see
@@ -226,11 +246,25 @@ def fewshot_probs_seeds(
     with h_u in slot k, then each entry's Eq. 8-9 gate with ``servers[e]``'s
     f_c^k and f_c. ``h_u_stack`` (E, N_u, d_k), ``h_o_stacks[j]`` (E, N_o,
     d_j). Returns p̂ (E, N_u) float32; ``estimates_out`` (if given) receives
-    the (E, N_u, d_j) estimates in party order."""
-    ests = dispatch.estimate_missing_batched(h_u_stack, h_o_stacks, k)
+    the (E, N_u, d_j) estimates in party order.
+
+    A ``mesh`` shards the estimates: E is padded with copies of entry 0,
+    each slot estimates its slice, and the estimates are stripped back to E
+    on this device before the gates, which run entry by entry here."""
+    num_entries = h_u_stack.shape[0]
+    mesh = parallel.resolve_mesh(mesh, h_u_stack.device)
+    pad = parallel.pad_width(num_entries, mesh)
+    ests = dispatch.estimate_missing_batched(
+        parallel.pad_stacked(h_u_stack, pad), parallel.pad_stacked(list(h_o_stacks), pad), k, mesh
+    )
+    ests = parallel.strip_stacked(ests, num_entries)
     if estimates_out is not None:
         estimates_out.extend(ests)
-    gate = sessions.cached_session("fewshot_gate", ("gate", float(threshold)), lambda: _gate_fn(threshold))
+    gate = sessions.cached_session(
+        "fewshot_gate",
+        ("gate", float(threshold), parallel.mesh_key(mesh)),
+        lambda: _gate_fn(threshold),
+    )
     probs = [gate(srv, k, h_u_stack[e], [est[e] for est in ests]) for e, srv in enumerate(servers)]
     return torch.stack(probs)
 
@@ -257,12 +291,18 @@ def fit_sessions_batched(
     ys: Sequence[torch.Tensor],
     schedules: Sequence[Optional[np.ndarray]],
     lr: float,
+    mesh=None,
 ) -> None:
     """A batch of server classifier fits, trained in place: entry e fits
     ``models[e]`` on ``xs[e]``, ``ys[e]`` over ``schedules[e]`` (``server.fit``'s
     loop: clip 5.0, SGD with momentum 0.9). Entries that share a spec, data
     shapes and schedule shape train as one stacked session (domain
-    ``"server_fit"``); a None schedule is a no-op fit."""
+    ``"server_fit"``); a None schedule is a no-op fit.
+
+    A ``mesh`` shards each session: its entries are padded with copies of
+    the first (module, data and schedule), each slot keeps its slice's
+    parameters and momentum on its device for the whole session, and only
+    the real entries are written back."""
     groups: Dict[tuple, List[int]] = {}
     for e, (m, x, y, sched) in enumerate(zip(models, xs, ys, schedules)):
         if sched is None:
@@ -270,24 +310,29 @@ def fit_sessions_batched(
         spec = sessions.module_spec(m)
         groups.setdefault((spec, tuple(x.shape), tuple(y.shape), sched.shape, x.device), []).append(e)
     for (spec, xshape, _, _, dev), members in groups.items():
+        mesh = parallel.resolve_mesh(mesh, dev)
         step = sessions.cached_session(
-            "server_fit", ("vmap", spec, float(lr)), lambda: StackedFitStep(spec, xshape[-1])
+            "server_fit",
+            ("vmap", spec, float(lr), parallel.mesh_key(mesh)),
+            lambda: StackedFitStep(spec, xshape[-1]),
         )
-        mods = [models[e] for e in members]
-        params, _ = stack_module_state(mods)
+        padded = parallel.pad_entries(members, mesh)
+        params, _ = stack_module_state([models[e] for e in padded])
         params = {k: v.detach() for k, v in params.items()}
-        flat = list(params.values())
-        trace = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
-        x = torch.stack([xs[e] for e in members]).detach()
-        y = torch.stack([ys[e] for e in members])
-        idx = torch.from_numpy(np.stack([schedules[e] for e in members])).to(dev)
-        rows = torch.arange(len(members), device=dev)[:, None]
+        x = torch.stack([xs[e] for e in padded]).detach()
+        y = torch.stack([ys[e] for e in padded])
+        idx = torch.from_numpy(np.stack([schedules[e] for e in padded])).to(dev)
+        slots = parallel.split_stacked((params, x, y, idx), mesh)
+        traces = [[torch.zeros_like(p, dtype=torch.float32) for p in sp.values()] for sp, *_ in slots]
+        rows = [torch.arange(sx.shape[0], device=sx.device)[:, None] for _, sx, _, _ in slots]
         for i in range(idx.shape[1]):
-            g = step.grad(params, x[rows, idx[:, i]], y[rows, idx[:, i]])
-            clipped_sgd_stacked_(flat, trace, list(g.values()), lr, 0.9, 5.0)
+            for (sp, sx, sy, sidx), trace, r in zip(slots, traces, rows):
+                g = step.grad(sp, sx[r, sidx[:, i]], sy[r, sidx[:, i]])
+                clipped_sgd_stacked_(list(sp.values()), trace, list(g.values()), lr, 0.9, 5.0)
+        params = parallel.gather_stacked([sp for sp, *_ in slots], dev)
         with torch.no_grad():
-            for e, m in enumerate(mods):
-                for name, p in m.named_parameters():
+            for e, member in enumerate(members):  # the real entries only
+                for name, p in models[member].named_parameters():
                     p.copy_(params[name][e])
 
 

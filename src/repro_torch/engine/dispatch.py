@@ -6,6 +6,9 @@ Counterpart of ``repro.engine.dispatch``. The reference routes through a
 the tensors' device (the CUDA kernels on the card, the plain versions on
 the CPU), so the switch has no counterpart; the folds' built closures sit
 in ``engine.sessions`` (domain ``"sdpa"`` for :func:`estimate_missing_batched`).
+A batch mesh (``engine.parallel``) shards the stacked forms slot by slot:
+each slot's k-means search and Eq. 10 estimate is its own launch over its
+slice, on its device.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Any, List, Optional, Sequence
 import torch
 
 from repro_torch.core import clustering, estimator
-from repro_torch.engine import sessions
+from repro_torch.engine import parallel, sessions
 
 
 def pseudo_labels(
@@ -43,13 +46,25 @@ def pseudo_labels_batched(
     *,
     draws: Optional[clustering.SeedingDraws] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Step ③ for a stack of parties (B, N, d) → (B, N) int64, restarts and
     parties on one axis: each Lloyd iteration is one launch over B·R, the
-    inertia one more, and the final assignment one over B."""
-    return clustering.gradient_pseudo_labels_batched(
-        partial_grads, num_classes, kmeans_iters, restarts, draws=draws, generator=generator
-    )[0]
+    inertia one more, and the final assignment one over B.
+
+    With a ``mesh`` each slot searches its slice of B (``kmeans_iters + 2``
+    launches a slot); the caller pads B to a multiple of the slots and
+    gives the padded ``draws`` (a generator would draw for the padding)."""
+
+    def search(grads: torch.Tensor, d: Optional[clustering.SeedingDraws]) -> torch.Tensor:
+        return clustering.gradient_pseudo_labels_batched(
+            grads, num_classes, kmeans_iters, restarts, draws=d, generator=generator
+        )[0]
+
+    mesh = parallel.resolve_mesh(mesh, partial_grads.device)
+    if mesh is not None and draws is None:
+        raise ValueError("a sharded k-means search takes its seeding draws, padded with the batch")
+    return parallel.shard_step(search, mesh)(partial_grads, draws)
 
 
 def estimate_missing_fused(
@@ -66,7 +81,7 @@ def estimate_missing_fused(
 
 
 def estimate_missing_batched(
-    h_u_stack: torch.Tensor, h_o_stacks: Sequence[torch.Tensor], k: int
+    h_u_stack: torch.Tensor, h_o_stacks: Sequence[torch.Tensor], k: int, mesh=None
 ) -> List[torch.Tensor]:
     """Few-shot step ③' estimates over a stacked entry axis (seeds and
     scenarios): ``h_u_stack`` (E, N_u, d_k) is party k's unaligned reps in
@@ -78,19 +93,24 @@ def estimate_missing_batched(
     H_o^k (:func:`estimate_missing_fused`'s layout, so a single entry
     launches exactly what it did), at E > 1 of width (K−1)·E, party-major,
     with h_u and H_o^k repeated. Otherwise each missing party is one launch
-    of width E."""
+    of width E.
+
+    With a ``mesh`` each slot makes those launches over its slice of E
+    (the caller pads E to a multiple of the slots)."""
     others = [j for j in range(len(h_o_stacks)) if j != k]
-    num_entries = h_u_stack.shape[0]
     fuse = len(others) > 1 and len({tuple(h_o_stacks[j].shape) for j in others}) == 1
-    fn = sessions.cached_session("sdpa", ("estimate_missing", fuse), lambda: _missing_fn(fuse))
-    return fn(h_u_stack, h_o_stacks, k, others, num_entries)
+    mesh = parallel.resolve_mesh(mesh, h_u_stack.device)
+    fn = sessions.cached_session(
+        "sdpa", ("estimate_missing", fuse, parallel.mesh_key(mesh)), lambda: _missing_fn(fuse)
+    )
+    return parallel.shard_step(fn, mesh)(h_u_stack, list(h_o_stacks), k, others)
 
 
 def _missing_fn(fuse: bool):
     """The Eq. 10 estimate of the missing parties, fused or one launch a party."""
 
-    def fused(h_u, h_o, k, others, e):
-        width = len(others)
+    def fused(h_u, h_o, k, others):
+        width, e = len(others), h_u.shape[0]
         if e == 1:
             q = h_u[0].expand(width, *h_u.shape[1:])
             a = h_o[k][0].expand(width, *h_o[k].shape[1:])
@@ -102,7 +122,7 @@ def _missing_fn(fuse: bool):
         est = estimator.sdpa_transform_batched(q, a, b)
         return list(est.reshape(width, e, *est.shape[1:]).unbind(0))
 
-    def per_party(h_u, h_o, k, others, e):
+    def per_party(h_u, h_o, k, others):
         return [estimator.sdpa_transform_batched(h_u, h_o[k], h_o[j]) for j in others]
 
     return fused if fuse else per_party

@@ -18,6 +18,8 @@ step, in the order the one-party loop draws them (:func:`draw_session`), so
 the stack trains on exactly the loop's draws. ``train_clients_ssl`` picks
 the path: the reference's dispatcher stacks any homogeneous tasks, this one
 only where the card's measurements show the stack paying (:func:`stack_pays`).
+A batch mesh (``engine.parallel``) shards the stacked session slot by slot;
+it never changes which path runs.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from torch.func import functional_call, grad_and_value, vmap
 
 from repro_torch.core.ssl import SSLConfig, SSLDraws, draw_ssl, ssl_loss
 from repro_torch.data.loader import epoch_batches
-from repro_torch.engine import sessions
+from repro_torch.engine import parallel, sessions
 from repro_torch.optim import ClippedSGD, clipped_sgd_stacked_
 
 # Offset of the unlabeled draw stream from the labeled shuffle stream: the
@@ -319,6 +321,7 @@ def train_parties_ssl_stacked(
     hp: SSLHParams,
     seeds0: Sequence[int],
     step_draws: Sequence[Sequence[SSLDraws]],
+    mesh=None,
 ) -> List[Dict[str, float]]:
     """E homogeneous tasks' SSL sessions as one stacked session; trains
     every task's modules in place and returns each task's last-step metrics.
@@ -327,9 +330,17 @@ def train_parties_ssl_stacked(
     per-step draws, exactly as :func:`train_party_ssl` takes them, so
     entry e trains as that loop would, up to the rounding of batched
     products. An entry's ``step_valid`` 0 still computes the step and
-    commits neither its parameters nor its momentum."""
+    commits neither its parameters nor its momentum.
+
+    With a ``mesh`` the E entries are padded to a multiple of its slots with
+    copies of entry 0 (its task, schedule and drawn tensors, never a new
+    draw), each slot holds its slice's parameters, momentum, data and draws
+    on its device for the whole session, every step launches each slot's
+    step in turn, and only the real entries are written back."""
     t0 = tasks[0]
     n = len(tasks)
+    dev = t0.x_labeled.device
+    mesh = parallel.resolve_mesh(mesh, dev)
     scheds = [
         build_schedule(s0, t.x_labeled.shape[0], t.x_unlabeled.shape[0], hp)
         for s0, t in zip(seeds0, tasks)
@@ -344,7 +355,9 @@ def train_parties_ssl_stacked(
             )
     if steps == 0:
         return [{} for _ in tasks]
-    dev = t0.x_labeled.device
+    tasks, scheds, step_draws = (
+        parallel.pad_entries(x, mesh) for x in (tasks, scheds, step_draws)
+    )
     fm, m_l, m_u = (
         _stack([getattr(t, a) for t in tasks])
         for a in ("feature_mean", "labeled_mask", "unlabeled_mask")
@@ -357,7 +370,7 @@ def train_parties_ssl_stacked(
     head_spec = sessions.module_spec(t0.head)
     key = (
         "vmap", ext_spec, head_spec, t0.ssl_cfg,
-        (hp.learning_rate, hp.momentum, hp.grad_clip), in_dims,
+        (hp.learning_rate, hp.momentum, hp.grad_clip), in_dims, parallel.mesh_key(mesh),
     )
     step = sessions.cached_session(
         "ssl",
@@ -367,43 +380,62 @@ def train_parties_ssl_stacked(
         ),
     )
 
-    own = step.param_lists(tasks)
+    own = step.param_lists(tasks)  # a padded slot's are entry 0's: read, never written
     with torch.no_grad():
         flat = [torch.stack(ps) for ps in zip(*own)]
-    trace = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
-
     x_l, y_l, x_u = (
         torch.stack([getattr(t, a) for t in tasks]) for a in ("x_labeled", "y_pseudo", "x_unlabeled")
     )
     idx_l = torch.from_numpy(np.stack([s.idx_labeled for s in scheds])).to(dev)
     idx_u = torch.from_numpy(np.stack([s.idx_unlabeled for s in scheds])).to(dev)
-    rows = torch.arange(n, device=dev)[:, None]
     template = step_draws[0][0]
-    draws = _stack_draws(step_draws)
+    stacked = (flat, x_l, y_l, x_u, idx_l, idx_u, _stack_draws(step_draws), fm, m_l, m_u, valid)
+    slots = [_SSLSlot(*part) for part in parallel.split_stacked(stacked, mesh)]
 
-    metrics = None
     for i in range(steps):
-        il, iu = idx_l[:, i], idx_u[:, i]
-        grads, (_, metrics) = step.grad(
-            tuple(flat),
-            x_l[rows, il],
-            y_l[rows, il],
-            x_u[rows, iu],
-            [d[:, i] for d in draws],
-            template,
-            fm,
-            None if m_l is None else m_l[rows, il],
-            None if m_u is None else m_u[rows, iu],
-        )
-        commit = None if valid is None else valid[:, i]
-        clipped_sgd_stacked_(flat, trace, grads, hp.learning_rate, hp.momentum, hp.grad_clip, commit)
+        for slot in slots:
+            slot.step(step, i, template, hp)
 
     with torch.no_grad():
-        for e, ps in enumerate(own):
-            for p, stacked in zip(ps, flat):
-                p.copy_(stacked[e])
-    host = metrics.cpu().tolist()
-    return [dict(zip(StackedSSLStep.METRICS, row)) for row in host]
+        flat = parallel.gather_stacked([slot.flat for slot in slots], dev)
+        for e, ps in enumerate(own[:n]):  # the real entries only
+            for p, col in zip(ps, flat):
+                p.copy_(col[e])
+    metrics = parallel.gather_stacked([slot.metrics for slot in slots], dev)[:n]
+    return [dict(zip(StackedSSLStep.METRICS, row)) for row in metrics.cpu().tolist()]
+
+
+class _SSLSlot:
+    """One mesh slot's share of a stacked SSL session, on its device: its
+    entries' stacked parameters and momentum, data, schedules, draws and
+    masks, and its last step's metrics."""
+
+    def __init__(self, flat, x_l, y_l, x_u, idx_l, idx_u, draws, fm, m_l, m_u, valid):
+        self.flat, self.x_l, self.y_l, self.x_u = flat, x_l, y_l, x_u
+        self.idx_l, self.idx_u, self.draws = idx_l, idx_u, draws
+        self.fm, self.m_l, self.m_u, self.valid = fm, m_l, m_u, valid
+        self.trace = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
+        self.rows = torch.arange(x_l.shape[0], device=x_l.device)[:, None]
+        self.metrics: Optional[torch.Tensor] = None
+
+    def step(self, step: StackedSSLStep, i: int, template, hp: SSLHParams) -> None:
+        """Step ``i`` of the schedule, launched and never read back."""
+        rows, il, iu = self.rows, self.idx_l[:, i], self.idx_u[:, i]
+        grads, (_, self.metrics) = step.grad(
+            tuple(self.flat),
+            self.x_l[rows, il],
+            self.y_l[rows, il],
+            self.x_u[rows, iu],
+            [d[:, i] for d in self.draws],
+            template,
+            self.fm,
+            None if self.m_l is None else self.m_l[rows, il],
+            None if self.m_u is None else self.m_u[rows, iu],
+        )
+        commit = None if self.valid is None else self.valid[:, i]
+        clipped_sgd_stacked_(
+            self.flat, self.trace, grads, hp.learning_rate, hp.momentum, hp.grad_clip, commit
+        )
 
 
 def _stack_draws(step_draws: Sequence[Sequence[SSLDraws]]) -> List[torch.Tensor]:
@@ -453,6 +485,7 @@ def train_clients_ssl(
     seeds0: Sequence[int],
     step_draws: Sequence[Sequence[SSLDraws]],
     mode: str = "auto",
+    mesh=None,
 ) -> Tuple[List[Dict[str, float]], str]:
     """Every task's SSL session; returns the per-task last-step metrics and
     the path that ran, ``"vmap"`` (one stacked session) or ``"python"`` (one
@@ -460,7 +493,9 @@ def train_clients_ssl(
 
     ``mode``: ``"auto"`` stacks homogeneous tasks where :func:`stack_pays`
     for one entry of ``len(tasks)`` parties; ``"vmap"`` requires the stack
-    (and raises on heterogeneous tasks); ``"python"`` forces the loop."""
+    (and raises on heterogeneous tasks); ``"python"`` forces the loop. A
+    ``mesh`` shards the stacked session; the loop has no stacked axis and
+    ignores it."""
     if mode not in ("auto", "vmap", "python"):
         raise ValueError(f"unknown engine mode {mode!r}")
     refuse_unstackable(tasks, mode)
@@ -472,7 +507,7 @@ def train_clients_ssl(
         )
     pays = homogeneous and stack_pays(sessions.module_spec(tasks[0].extractor), len(tasks))
     if mode == "vmap" or (mode == "auto" and pays):
-        return train_parties_ssl_stacked(tasks, hp, seeds0, step_draws), "vmap"
+        return train_parties_ssl_stacked(tasks, hp, seeds0, step_draws, mesh), "vmap"
     metrics = [
         train_party_ssl(t, hp, s0, step_draws=d) for t, s0, d in zip(tasks, seeds0, step_draws)
     ]

@@ -11,7 +11,12 @@ the same keys.
 
 Keys never carry batch width or data shapes: the parameters, data, draws
 and masks all travel as arguments, so one built step serves every seed and
-every scenario of a fold. The counterpart of the reference's ``model_key``
+every scenario of a fold. The keys of the domains a batch mesh shards
+(``"ssl"``, ``"server_fit"``, ``"kmeans"``, ``"sdpa"``, ``"fewshot_gate"``)
+end with ``engine.parallel.mesh_key``: the mesh's axis names and shape
+(None without one), never its width or its devices, so a sharded fold's
+first build is a miss of its own and every later width on that mesh shape
+a hit. The built objects hold no device; each call names the slots. The counterpart of the reference's ``model_key``
 is an :class:`~repro_torch.checkpoint.artifact.ExtractorSpec`: equal specs
 build the same module. :func:`module_spec` reads the spec back off a built
 module, so a task that carries only its modules still has a key.

@@ -32,6 +32,8 @@ from repro_torch.core.protocol import (  # noqa: E402
     ProtocolConfig,
     run_few_shot,
     run_few_shot_finetune,
+    run_one_shot,
+    run_seeds,
 )
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
@@ -41,6 +43,7 @@ from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
 from repro_torch.launch import batching, vfl_serve  # noqa: E402
+from repro_torch.launch.mesh import BatchMesh  # noqa: E402
 from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
 from repro_torch.launch.vfl_serve import KernelRouter, ServingEngine  # noqa: E402
 from repro_torch.models import moe as zoo_moe  # noqa: E402
@@ -1425,3 +1428,35 @@ def test_reduced_last_zoo_family_on_the_card_matches_the_cpu(name, window, cuda)
     assert (rops.LAUNCHES, dops.LAUNCHES) == (want_rms + chip_smoke.encoder_norms(cfg), 0)
     want = model.prefill_fn(host, {"tokens": toks, **extra})
     assert chip_smoke._rel(got.cpu(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("runner", [run_one_shot, run_few_shot], ids=["one_shot", "few_shot"])
+def test_two_slots_of_one_card_equal_the_unsharded_fold(runner, cuda):
+    """``ProtocolConfig.mesh`` on the card: 3 seeds of ``hard/overlap-32``
+    on two slots of one card (the fits and ③' pad 3 entries to 4) equal the
+    unsharded fold at 1e-5 on the metric and every leaf, with equal ledgers,
+    and each slot launches its own k-means search and ③' estimates."""
+    seeds = [0, 1, 2]
+    bundles = [scenarios.build("hard/overlap-32", seed=s, device="cuda") for s in seeds]
+    cfg = ProtocolConfig(client_epochs=2, server_epochs=3, engine_mode="vmap")
+    card = torch.device("cuda", 0)
+    runs = {}
+    for slots, run_cfg in ((1, cfg), (2, dataclasses.replace(cfg, mesh=BatchMesh((card, card))))):
+        torch.cuda.synchronize()
+        km0, sd0 = kops.LAUNCHES, ops.LAUNCHES
+        runs[slots] = run_seeds(
+            runner, seeds, [b.split for b in bundles], [b.extractors for b in bundles],
+            [b.ssl_cfgs for b in bundles], run_cfg, device="cuda",
+        )
+        eq10 = 2 * slots if runner is run_few_shot else 0  # ③': one a party a slot
+        assert (kops.LAUNCHES - km0, ops.LAUNCHES - sd0) == (slots * (cfg.kmeans_iters + 2), eq10)
+        assert {r.diagnostics["device_fold"] for r in runs[slots]} == {slots}
+    for a, b in zip(runs[2], runs[1], strict=True):
+        assert abs(a.metric - b.metric) <= 1e-5
+        assert (a.ledger.total_bytes(), a.ledger.comm_times(), a.ledger.by_tag()) == (
+            b.ledger.total_bytes(), b.ledger.comm_times(), b.ledger.by_tag()
+        )
+        la, lb = (chip_smoke._mesh_leaves(r) for r in (a, b))
+        assert len(la) == len(lb)
+        for p, q in zip(la, lb):
+            torch.testing.assert_close(p, q, atol=1e-5, rtol=0)
