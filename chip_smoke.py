@@ -93,14 +93,19 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    ``benchmarks/frontier_baseline.json`` (every violation fails the run
    but the FOLD_GATE_REPORTED miss within its margin, printed); fold and
    loop wall times side by side; exact ``kmeans`` (27 a folded group) and Eq. 10 launches;
-9b'. the mesh (``ProtocolConfig.mesh``): one-shot and few-shot on
-   ``hard/overlap-32`` at its budgets over MESH_SEEDS (one fold), unsharded
-   and on ``BatchMesh((cuda:0, cuda:0))``, whose two slots share the card
-   and run the padded (3 entries → 4 in the fits and ③'), split, per-slot
-   and gathered path: the metric and every leaf within MESH_TOL, equal
-   ledgers, ``device_fold`` 2 and 1, and each run's ``kmeans`` (27 a slot)
-   and ``sdpa_estimator`` (few-shot's ③': one a party a slot) launches
-   exact; the visible cards and each run's wall time;
+9b'. the mesh (``ProtocolConfig.mesh``, ``IterativeConfig.mesh``), every
+   row on ``hard/overlap-32`` unsharded and on ``BatchMesh((cuda:0,
+   cuda:0))``, whose two slots share the card and run the padded (3
+   entries → 4), split, per-slot and gathered path: one-shot at its budget
+   and few-shot at few-shot A's over MESH_SEEDS (one fold); SplitNN, FedBCD
+   (Q = 5) and FedCVT at 400 iterations over MESH_SEEDS, stacked; few-shot
+   + finetune at finetune A's budget (20 client epochs, 200 finetune
+   iterations) over MESH_FINETUNE_SEEDS, its finetune session stacked on
+   the mesh: the metric, every leaf and every loss within
+   MESH_TOL, equal ledgers, ``device_fold`` 2 and 1, and each run's
+   ``kmeans`` (27 a slot a pass) and ``sdpa_estimator`` (③': one a party a
+   slot) launches exact, none from a baseline or the finetune session; the
+   visible cards, each run's wall time and the iterative rows' time;
 9c. the scenario catalog: one-shot and few-shot through ``scenarios.build``
    on the card, ``run_one_shot`` and ``run_few_shot`` at seed 0 and the
    registered sizes and budgets (a tabular scenario's client epochs cut
@@ -554,11 +559,21 @@ def gate_miss_reported(problem: str) -> bool:
 # and the fault family's few-shot ③' folded over C = 9 (width 27: the K − 1 = 3
 # estimates of 9 entries, h_u and H_oᴬ repeated).
 FOLD_SDPA_SHAPES = [((4, 1184, 32, 16, 16), torch.float32), ((27, 592, 32, 16, 16), torch.float32)]
-# [mesh]: one-shot and few-shot on hard/overlap-32 at its budgets over these
-# seeds, unsharded and on a 2-slot mesh of one card (3 entries padded to 4
-# in the fits and ③'), held to MESH_TOL on the metric and every leaf
+# [mesh]: one-shot (at hard/overlap-32's budget), few-shot (at few-shot A's)
+# and the three baselines (at 400 iterations) over these seeds, unsharded and
+# on a 2-slot mesh of one card (3 entries padded to 4), held to MESH_TOL on
+# the metric, every leaf and every loss
 MESH_SEEDS = range(3)
 MESH_TOL = 1e-5
+# [mesh]'s few-shot + finetune row: four entries, so that "auto" stacks the
+# finetune session (iterative.stack_pays), at finetune A's budget. The
+# baseline and finetune rows together should take at most
+# MESH_ITERATIVE_BUDGET_S (printed, not held: hosts differ ~2x); they took
+# 74.3 s on the H100, and the row is not cut further: at 5 client epochs
+# seed 1's sharded ⑤' left the unsharded one by 7.5e-5 (PERF.md §6,
+# benchmarks/torch_mesh_parity.py)
+MESH_FINETUNE_SEEDS = range(4)
+MESH_ITERATIVE_BUDGET_S = 60
 BASELINE_RUNNERS = (
     ("vanilla", baselines.run_vanilla),
     ("fedbcd", baselines.run_fedbcd),
@@ -568,7 +583,8 @@ FINETUNE_ITERATIONS = 200
 # Few-shot A and few-shot + finetune A at hard/overlap-32's budget with its
 # client epochs cut 4-fold (80 → 20: ⑤' 1520 SSL steps, not 6080; 22.4 s of
 # few-shot A's 23.4 on the H100 at 80), so that the script keeps inside its
-# limit on a slow host. On the CPU the cut moved few-shot's AUC 0.7976 →
+# limit on a slow host; [mesh]'s few-shot row too (34.5 s unsharded and 71.7
+# on two slots at 80). On the CPU the cut moved few-shot's AUC 0.7976 →
 # 0.7931 (PERF.md §6). One-shot A keeps the full budget.
 A_FEW_EPOCH_CUT = 4
 # Few-shot step ③' gate decisions, card vs the CPU's plain route: equal
@@ -2332,74 +2348,101 @@ def _mesh_leaves(res) -> list:
 
 
 def phase_mesh(line: str) -> dict:
-    """``ProtocolConfig.mesh`` on the card: one-shot and few-shot on
-    ``hard/overlap-32`` at its budgets over MESH_SEEDS, unsharded and on
-    ``BatchMesh((cuda:0, cuda:0))``, whose slots share the card and still run
-    the padded, split, per-slot and gathered path. Each sharded run's metric
-    and every leaf within MESH_TOL of the unsharded one's, equal ledgers,
-    ``device_fold`` 2 and 1, and each run's ``kmeans`` and
-    ``sdpa_estimator`` launches exact: one a slot per assignment and per
-    estimate. Returns the launches the phase made."""
+    """The batch mesh on the card, every row on ``hard/overlap-32``
+    unsharded and on ``BatchMesh((cuda:0, cuda:0))``, whose slots share the
+    card and still run the padded, split, per-slot and gathered path:
+    one-shot at its budget and few-shot at few-shot A's over MESH_SEEDS
+    (``ProtocolConfig.mesh``); SplitNN, FedBCD and FedCVT at [baselines A]'s
+    400 iterations over MESH_SEEDS, stacked (``IterativeConfig.mesh``); and
+    few-shot + finetune at finetune A's budget over MESH_FINETUNE_SEEDS, its
+    finetune session stacked on the protocol's mesh. Each sharded run's
+    metric, losses and every leaf within MESH_TOL of the unsharded one's,
+    equal ledgers, ``device_fold`` 2 and 1 on the stacked path, and each
+    run's ``kmeans`` and ``sdpa_estimator`` launches exact: one a slot per
+    assignment and per estimate, none from a baseline or the finetune
+    session. Returns the launches the phase made and the rows' walls."""
     spec = scenarios.HARD_OVERLAP_32
     seeds = list(MESH_SEEDS)
-    bundles = [scenarios.build(spec, seed=s, device="cuda") for s in seeds]
+    ft_seeds = list(MESH_FINETUNE_SEEDS)
+    bundles = {s: scenarios.build(spec, seed=s, device="cuda") for s in sorted({*seeds, *ft_seeds})}
     cfg = _budget_cfg(spec)
+    it_cfg = baselines.IterativeConfig(iterations=spec.budget("iterations", 300), engine_mode="vmap")
+    few_cfg = _cut_cfg(spec, A_FEW_EPOCH_CUT)
     card = torch.device("cuda", 0)
     mesh = BatchMesh((card, card))
     km_run = cfg.kmeans_iters + 2  # one search a pass: Lloyd iterations, inertia, final
     eq10 = sum(1 for u in bundles[0].split.unaligned if u.shape[0] > 0)  # ③': one a party
+    rows = [  # (row, runner, seeds, config, (kmeans, sdpa_estimator) launches a slot, kwargs)
+        ("one-shot", run_one_shot, seeds, cfg, (km_run, 0), {}),
+        ("few-shot", run_few_shot, seeds, few_cfg, (km_run, eq10), {}),
+        *((name, fn, seeds, it_cfg, (0, 0), {}) for name, fn in BASELINE_RUNNERS),
+        ("few-shot + finetune", run_few_shot_finetune, ft_seeds, few_cfg, (km_run, eq10),
+         {"finetune_iterations": FINETUNE_ITERATIONS}),
+    ]
     out = {"sdpa": 0, "kmeans": 0, "walls": {}, "launches": {}}
     worst = 0.0
-    for protocol, runner in (("one-shot", run_one_shot), ("few-shot", run_few_shot)):
+    for row, runner, row_seeds, row_cfg, per_slot, kw in rows:
         runs = {}
-        for slots, run_cfg in ((1, cfg), (2, dataclasses.replace(cfg, mesh=mesh))):
-            what = f"mesh {protocol} on {slots} slot(s)"
+        for slots, run_cfg in ((1, row_cfg), (2, dataclasses.replace(row_cfg, mesh=mesh))):
+            what = f"mesh {row} on {slots} slot(s)"
             torch.cuda.synchronize()
             km0, sd0 = kops.LAUNCHES, ops.LAUNCHES
             t0 = time.perf_counter()
             res = run_seeds(
-                runner, seeds, [b.split for b in bundles], [b.extractors for b in bundles],
-                [b.ssl_cfgs for b in bundles], run_cfg, device="cuda",
+                runner, row_seeds, [bundles[s].split for s in row_seeds],
+                [bundles[s].extractors for s in row_seeds], [bundles[s].ssl_cfgs for s in row_seeds],
+                run_cfg, device="cuda", **kw,
             )
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = (kops.LAUNCHES - km0, ops.LAUNCHES - sd0)
-            want = (slots * km_run, slots * eq10 if protocol == "few-shot" else 0)
+            want = (slots * per_slot[0], slots * per_slot[1])
             check(got == want, f"{what}: (kmeans, sdpa_estimator) launches {got}, not {want}")
             folds = {(r.diagnostics["device_fold"], r.diagnostics["engine_path"]) for r in res}
             check(folds == {(slots, "vmap")}, f"{what}: (device_fold, engine_path) {folds}")
+            if kw:  # the finetune session: stacked, on the protocol's mesh
+                ft = {(r.diagnostics["finetune_device_fold"], r.diagnostics["finetune_engine_path"])
+                      for r in res}
+                check(ft == {(slots, "vmap")}, f"{what}: the finetune's (device_fold, engine_path) {ft}")
             check(all(math.isfinite(r.metric) for r in res), f"{what}: metrics {[r.metric for r in res]}")
             out["sdpa"] += got[1]
             out["kmeans"] += got[0]
-            out["walls"][f"{protocol} {slots}"] = wall
-            out["launches"][f"{protocol} {slots}"] = got
+            out["walls"][f"{row} {slots}"] = wall
+            out["launches"][f"{row} {slots}"] = got
             runs[slots] = res
-        for seed, a, b in zip(seeds, runs[2], runs[1]):
-            what = f"mesh {protocol} seed {seed}"
+        err = 0.0
+        for seed, a, b in zip(row_seeds, runs[2], runs[1]):
+            what = f"mesh {row} seed {seed}"
             for key in ("total_bytes", "comm_times", "by_tag"):
                 ka, kb = getattr(a.ledger, key)(), getattr(b.ledger, key)()
                 check(ka == kb, f"{what}: ledger {key} {ka} sharded, {kb} unsharded")
-            err = abs(a.metric - b.metric)
             la, lb = _mesh_leaves(a), _mesh_leaves(b)
+            if "losses" in b.diagnostics:
+                la, lb = la + [a.diagnostics["losses"]], lb + [b.diagnostics["losses"]]
             check(len(la) == len(lb), f"{what}: {len(la)} leaves against {len(lb)}")
-            err = max([err] + [(p - q).abs().max().item() for p, q in zip(la, lb)])
-            check(err <= MESH_TOL, f"{what}: sharded vs unsharded max|Δ| {err} > {MESH_TOL}")
-            worst = max(worst, err)
+            e = max([abs(a.metric - b.metric)] + [(p - q).abs().max().item() for p, q in zip(la, lb)])
+            check(e <= MESH_TOL, f"{what}: sharded vs unsharded max|Δ| {e} > {MESH_TOL}")
+            err = max(err, e)
+        worst = max(worst, err)
         a, b = runs[2][0], runs[1][0]
-        sharded, single = out["launches"][f"{protocol} 2"], out["launches"][f"{protocol} 1"]
+        sharded, single = out["launches"][f"{row} 2"], out["launches"][f"{row} 1"]
         print(
-            f"[mesh] {spec.name} {protocol}, seeds {seeds[0]}-{seeds[-1]}: {a.metric_name} "
-            f"{[round(r.metric, 4) for r in runs[2]]} | 2 slots of {card} ≡ unsharded: metric and "
-            f"every leaf within {MESH_TOL}, ledgers equal ({a.ledger.total_bytes()} bytes in "
+            f"[mesh] {spec.name} {row}, seeds {row_seeds[0]}-{row_seeds[-1]}: {a.metric_name} "
+            f"{[round(r.metric, 4) for r in runs[2]]} | 2 slots of {card} ≡ unsharded: max|Δ| "
+            f"{err:.3e} on the metric, every leaf{' and loss' if 'losses' in b.diagnostics else ''} "
+            f"(bound {MESH_TOL}), ledgers equal ({a.ledger.total_bytes()} bytes in "
             f"{a.ledger.comm_times()} comm times) | device_fold {a.diagnostics['device_fold']} / "
             f"{b.diagnostics['device_fold']} | (kmeans, sdpa_estimator) launches {sharded} / "
-            f"{single} | wall {out['walls'][protocol + ' 2']:.2f} s sharded, "
-            f"{out['walls'][protocol + ' 1']:.2f} s unsharded"
+            f"{single} | wall {out['walls'][row + ' 2']:.2f} s sharded, "
+            f"{out['walls'][row + ' 1']:.2f} s unsharded"
         )
+    iterative = [row for row, *_ in rows[2:]]
+    out["iterative_s"] = sum(out["walls"][f"{row} {n}"] for row in iterative for n in (1, 2))
     print(
         f"[mesh] {torch.cuda.device_count()} visible card(s); the mesh's 2 slots share {card} "
         f"(the cost of the slots, not a speed-up) | largest sharded vs unsharded difference "
-        f"{worst:.3e} | {line}"
+        f"{worst:.3e} | the iterative rows ({', '.join(iterative)}) {out['iterative_s']:.1f} s "
+        f"(budget {MESH_ITERATIVE_BUDGET_S} s) | {line}"
     )
     out["max_err"] = worst
     return out
@@ -3541,7 +3584,8 @@ def main() -> int:
     print(
         f"[path] mesh: sdpa_estimator launches {msh_sdpa} (expected {msh['sdpa']}: few-shot's ③', "
         f"one a party a slot), kmeans launches {msh_km} (expected {msh['kmeans']}: "
-        f"{ProtocolConfig().kmeans_iters + 2} a slot a pass) in {mesh_s:.1f} s"
+        f"{ProtocolConfig().kmeans_iters + 2} a slot a pass; the baselines and the finetune "
+        f"session launch none) in {mesh_s:.1f} s, the iterative rows {msh['iterative_s']:.1f} s"
     )
 
     # ---- the scenario catalog: counters from 0, read right after
@@ -3632,7 +3676,8 @@ def main() -> int:
         f"{few_shot_s:.1f} s; baselines A {baselines_a_s:.1f} s, baselines B {baselines_b_s:.1f} "
         f"s, few-shot + finetune A {finetune_s:.1f} s, faults {faults_s:.1f} s, folds "
         f"{folds_s:.1f} s (the iterative folds {fld['iterative_s']:.1f} s, the frontier "
-        f"{fld['frontier_s']:.1f} s), mesh {mesh_s:.1f} s, catalog "
+        f"{fld['frontier_s']:.1f} s), mesh {mesh_s:.1f} s (its iterative rows "
+        f"{msh['iterative_s']:.1f} s), catalog "
         f"{catalog_s:.1f} s; the zoo's "
         f"share: kernel phases "
         f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s, "

@@ -24,8 +24,11 @@ seed ``seed0``; then all entries' sessions run as one
 for it, else the per-entry loop. Every transfer
 goes through the :class:`CommLedger` with the reference's tags and rounds:
 a fault-free fold logs one prototype ledger (the orchestration copies it
-per result), a faulted one each entry's own. Results record
-``engine_path``, ``seed_fold`` and ``device_fold``.
+per result), a faulted one each entry's own. ``cfg.mesh`` (None, a slot
+count or a ``launch.mesh.BatchMesh``) shards the stacked session over its
+slots (``engine.parallel``); the per-entry loop ignores it. Results record
+``engine_path``, ``seed_fold`` and ``device_fold``: the mesh's slot count
+where the stacked session ran, else 1.
 
 A ``fault`` follows the reference's model of the synchronous round loop
 (:func:`log_fault_plan`): a dropout stalls the loop at its stage's share
@@ -54,8 +57,9 @@ from repro_torch.core.ssl import SSLConfig
 from repro_torch.data.loader import epoch_batches
 from repro_torch.data.vertical import VerticalSplit
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.engine import batched, iterative
+from repro_torch.engine import batched, iterative, parallel
 from repro_torch.engine.local_ssl import seed_from
+from repro_torch.launch.mesh import BatchMesh
 from repro_torch.scenarios.faults import FaultSpec
 
 
@@ -69,6 +73,7 @@ class IterativeConfig:
     fedbcd_q: int = 5  # Q (paper: 5)
     fedcvt_threshold: float = 0.95
     engine_mode: str = "auto"  # "auto" | "vmap" | "python": the sessions' path
+    mesh: object = None  # None | slot count | BatchMesh: the stacked session's slots
 
     def iter_hparams(self) -> iterative.IterHParams:
         return iterative.IterHParams(
@@ -197,14 +202,16 @@ def _setup(
 
 @dataclass
 class _SeedFold:
-    """The entries of one fold, their specs and faults, the step clock, and
-    what the fault plan gives: each entry's ledger (one shared prototype
-    when no entry is faulted), commit horizon and fault diagnostics."""
+    """The entries of one fold, their specs and faults, the step clock, the
+    resolved mesh (None: unsharded), and what the fault plan gives: each
+    entry's ledger (one shared prototype when no entry is faulted), commit
+    horizon and fault diagnostics."""
 
     entries: List[_Session]
     specs: Sequence[Sequence[ExtractorSpec]]
     faults: Optional[Sequence[Optional[FaultSpec]]]
     clock: "protocol._StepClock"
+    mesh: Optional[BatchMesh] = None
     ledgers: List[CommLedger] = field(default_factory=list)
     active: Optional[List[Optional[int]]] = None
     diags: List[dict] = field(default_factory=list)
@@ -213,7 +220,9 @@ class _SeedFold:
 def _seed_fold(
     seeds, splits, extractors, ssl_cfgs, cfg, device, faults=None, clients_per_seed=None, servers=None
 ) -> _SeedFold:
-    """Every entry's :func:`_setup`, each from its own seed's generator."""
+    """Every entry's :func:`_setup`, each from its own seed's generator.
+    ``cfg.mesh`` resolves here, on ``device``'s type; a mesh of the other
+    type is refused."""
     num = len(seeds)
     if not (len(splits) == len(extractors) == len(ssl_cfgs) == num):
         raise ValueError("a fold needs one split, extractor list and SSL-config list per seed")
@@ -223,6 +232,7 @@ def _seed_fold(
     if faults is not None and not any(f is not None for f in faults):
         faults = None
     dev = resolve_device(device)
+    mesh = parallel.fold_mesh(cfg.mesh, dev)
     clock = protocol._StepClock(dev)
     entries = [
         _setup(
@@ -233,7 +243,7 @@ def _seed_fold(
         for e, seed in enumerate(seeds)
     ]
     clock.lap("setup")
-    return _SeedFold(entries, [list(e) for e in extractors], faults, clock)
+    return _SeedFold(entries, [list(e) for e in extractors], faults, clock, mesh)
 
 
 def _plan(fold: _SeedFold, ledger: Optional[CommLedger], n_steps: int, payload_factor: int = 1) -> None:
@@ -268,9 +278,10 @@ def _finish(fold: _SeedFold, losses: torch.Tensor, path: str, extra: dict) -> Li
     """Score every entry's trained state on its held-out split and pack the
     results. ``diagnostics`` gets the entry's losses, the last one, the
     fold's stage times (``step_ms``: setup, session, eval), the path
-    (``engine_path``), ``seed_fold`` (the entries), ``device_fold`` 1 and
-    ``extra``. Under a dropout the dropped party's test reps are zeros;
-    under any fault the metric is also ``degraded_metric``."""
+    (``engine_path``), ``seed_fold`` (the entries), ``device_fold`` (the
+    mesh's slot count on the stacked path, 1 on the loop) and ``extra``.
+    Under a dropout the dropped party's test reps are zeros; under any
+    fault the metric is also ``degraded_metric``."""
     fold.clock.lap("session")
     faults = fold.faults if fold.faults is not None else [None] * len(fold.entries)
     scores = []
@@ -290,7 +301,7 @@ def _finish(fold: _SeedFold, losses: torch.Tensor, path: str, extra: dict) -> Li
             step_ms=dict(fold.clock.ms),
             engine_path=path,
             seed_fold=len(fold.entries),
-            device_fold=1,
+            device_fold=parallel.device_fold(fold.mesh) if path == "vmap" else 1,
         )
         results.append(
             VFLResult(name, metric, fold.ledgers[e], s.clients, s.server, tuple(fold.specs[e]), None, diags)
@@ -336,7 +347,7 @@ def run_vanilla_seeds(
     _plan(fold, ledger, cfg.iterations)
     exts, clfs, xs, ys = _data(fold)
     losses, path = batched.splitnn_sessions_seeds(
-        exts, clfs, cfg.iter_hparams(), xs, ys, schedules, cfg.engine_mode, fold.active
+        exts, clfs, cfg.iter_hparams(), xs, ys, schedules, cfg.engine_mode, fold.active, fold.mesh
     )
     return _finish(fold, losses, path, {"iterations": cfg.iterations})
 
@@ -383,7 +394,8 @@ def run_fedbcd_seeds(
     _plan(fold, None, rounds)
     exts, clfs, xs, ys = _data(fold)
     losses, path = batched.fedbcd_sessions_seeds(
-        exts, clfs, cfg.iter_hparams(), cfg.fedbcd_q, xs, ys, schedules, cfg.engine_mode, fold.active
+        exts, clfs, cfg.iter_hparams(), cfg.fedbcd_q, xs, ys, schedules, cfg.engine_mode, fold.active,
+        fold.mesh,
     )
     return _finish(fold, losses, path, {"rounds": rounds, "Q": cfg.fedbcd_q})
 
@@ -433,6 +445,7 @@ def run_fedcvt_seeds(
     losses, path = batched.fedcvt_sessions_seeds(
         exts, clfs, cfg.iter_hparams(), xs, ys, schedules,
         [s.split.unaligned for s in fold.entries], u_schedules, cfg.engine_mode, fold.active,
+        fold.mesh,
     )
     return _finish(fold, losses, path, {"iterations": cfg.iterations})
 

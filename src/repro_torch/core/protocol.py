@@ -59,8 +59,9 @@ entry, in the single-seed order.
 ``ProtocolConfig.mesh`` (None, a slot count or a ``launch.mesh.BatchMesh``)
 shards every stacked stage of a pass over the mesh's slots
 (``engine.parallel``): step ③'s search, the SSL sessions of ④ and ⑤', the
-server fits and ③''s estimates. Every entry still draws what its unsharded
-run draws, so the results and ledgers equal the unsharded fold's;
+server fits and ③''s estimates, and few-shot + finetune's finetune
+session (``IterativeConfig.mesh``). Every entry still draws what its
+unsharded run draws, so the results and ledgers equal the unsharded fold's;
 ``device_fold`` records the slot count where the SSL sessions ran stacked
 and 1 where they ran by the per-party loop.
 """
@@ -372,9 +373,7 @@ def _fold(
     if ledger is not None and len(seeds) != 1:
         raise ValueError("a ledger can be given to a single-entry pass only")
     dev = resolve_device(device)
-    mesh = parallel.resolve_mesh(cfg.mesh, dev)
-    if mesh is not None and mesh.devices[0].type != dev.type:
-        raise ValueError(f"a mesh of {mesh.devices[0].type} slots cannot shard a fold on {dev}")
+    mesh = parallel.fold_mesh(cfg.mesh, dev)
     shared = None if faults is not None else (ledger if ledger is not None else CommLedger())
     entries = []
     for i, seed in enumerate(seeds):
@@ -829,7 +828,10 @@ def _few_shot_finetune_seeds(
     entry's trained clients and fitted server straight to ONE
     ``baselines.run_vanilla_seeds`` fold, which continues the few-shot
     fold's ledger (see :func:`run_few_shot_finetune`); no per-entry loop in
-    between."""
+    between. The finetune session runs on the few-shot fold's mesh; the
+    diagnostics are the few-shot fold's, with the finetune's path and slot
+    count as ``finetune_engine_path`` / ``finetune_device_fold`` and its
+    stage times as ``finetune_*`` in ``step_ms``."""
     from repro_torch.core import baselines  # deferred: baselines imports this module
 
     if faults is not None and any(f is not None for f in faults):
@@ -846,6 +848,7 @@ def _few_shot_finetune_seeds(
         batch_size=cfg.batch_size,
         client_lr=cfg.client_lr / 10,
         server_lr=cfg.server_lr / 10,
+        mesh=fold.mesh,
     )
     results = baselines.run_vanilla_seeds(
         [seed_from(ent.host) for ent in fold.entries],
@@ -859,9 +862,11 @@ def _few_shot_finetune_seeds(
         device=fold.clock.device,
     )
     for res, few in zip(results, fews):
+        d = res.diagnostics
         step_ms = dict(few.diagnostics["step_ms"])
-        step_ms.update({f"finetune_{k}": v for k, v in res.diagnostics["step_ms"].items()})
-        res.diagnostics.update(few.diagnostics, fewshot_metric=few.metric, step_ms=step_ms)
+        step_ms.update({f"finetune_{k}": v for k, v in d["step_ms"].items()})
+        finetune = {f"finetune_{k}": d[k] for k in ("engine_path", "device_fold")}
+        d.update(few.diagnostics, fewshot_metric=few.metric, step_ms=step_ms, **finetune)
     return results
 
 
@@ -974,8 +979,9 @@ def run_scenarios_seeds(
     (``scenario_fold`` 1); :func:`run_seeds`
     is the C = 1 case. ``faults`` is an optional C×S grid of FaultSpecs,
     carried as per-entry data. Per-seed state kwargs are refused. A
-    protocol config's ``mesh`` is resolved once, here, and shards every
-    pass of the sweep (``device_fold``)."""
+    config's ``mesh`` (a ``ProtocolConfig``'s or an ``IterativeConfig``'s) is
+    resolved once, here, and shards every pass of the sweep
+    (``device_fold``)."""
     from repro_torch.core import runners as registry  # deferred: the registry imports this module
 
     num_scenarios = len(seeds)
@@ -995,7 +1001,7 @@ def run_scenarios_seeds(
             )
     entry = registry.resolve(runner)
     registry.reject_stateful_kwargs("run_scenarios_seeds", runner_kwargs, entry)
-    if isinstance(cfg, ProtocolConfig) and cfg.mesh is not None:
+    if getattr(cfg, "mesh", None) is not None:  # a ProtocolConfig's or an IterativeConfig's
         cfg = replace(cfg, mesh=parallel.resolve_mesh(cfg.mesh, resolve_device(device)))
     faults = runner_kwargs.pop("faults", None)
     if faults is not None:
@@ -1059,7 +1065,8 @@ def run_seeds(
     (``run_vanilla``, ``run_fedcvt``, ``run_fedbcd``) fold their S sessions
     into one stacked session. ``faults`` is an optional per-seed list; per-seed
     state kwargs (``clients``, ``server``, ``ledger``) are refused. A
-    ``ProtocolConfig.mesh`` shards the protocol folds' stacked stages."""
+    ``ProtocolConfig.mesh`` shards the protocol folds' stacked stages, an
+    ``IterativeConfig.mesh`` the baselines' stacked session."""
     if not (len(splits) == len(extractors) == len(ssl_cfgs) == len(seeds)):
         raise ValueError("run_seeds needs one split / extractor list / ssl-config list per seed")
     from repro_torch.core import runners as registry

@@ -29,11 +29,11 @@ batched products. Built steps are cached in ``engine.sessions`` under keys
 without batch width, so later seeds and scenarios add no fresh builds.
 
 Every stacked stage takes a ``mesh`` (``engine.parallel``): the SSL
-session, the k-means search, the Eq. 10 estimates and the server fits then
-run slot by slot over the entry axis, padded with copies of entry 0 and
-stripped before anything is written back, so a sharded fold equals the
-unsharded one entry by entry. The per-entry loops have no stacked axis and
-ignore it.
+session, the k-means search, the Eq. 10 estimates, the server fits and
+the iterative baselines' sessions then run slot by slot over the entry
+axis, padded with copies of entry 0 and stripped before anything is
+written back, so a sharded fold equals the unsharded one entry by entry.
+The per-entry loops have no stacked axis and ignore it.
 """
 
 from __future__ import annotations
@@ -355,7 +355,7 @@ def _assert_entry_models_equal(extractors_per_entry, classifiers) -> tuple:
 
 def _iterative_sessions(
     kind, extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode,
-    q=None, xs_u_per_entry=None, u_schedules=None, active_steps=None,
+    q=None, xs_u_per_entry=None, u_schedules=None, active_steps=None, mesh=None,
 ) -> Tuple[torch.Tensor, str]:
     from repro_torch.engine import iterative  # deferred: iterative imports core, core this module
 
@@ -365,28 +365,30 @@ def _iterative_sessions(
         iterative.session_cache_key(kind, specs, clf_spec, hp, q),
         lambda: iterative.StackedIterStep(kind, specs, shapes, clf_spec, hp, q),
         list(zip(extractors_per_entry, classifiers)),
-        xs_per_entry, ys, schedules, mode, xs_u_per_entry, u_schedules, active_steps,
+        xs_per_entry, ys, schedules, mode, xs_u_per_entry, u_schedules, active_steps, mesh,
     )
 
 
 def splitnn_sessions_seeds(
-    extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode="auto", active_steps=None
+    extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode="auto", active_steps=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, str]:
     """E entries of one SplitNN session as one fold, trained in place.
     ``extractors_per_entry[e]`` / ``classifiers[e]`` are entry e's modules
     (equal specs across entries, :func:`_assert_entry_models_equal`),
     ``xs_per_entry[e]`` / ``ys[e]`` / ``schedules[e]`` its data and
     minibatch schedule, ``active_steps[e]`` its commit horizon (None: every
-    step). Returns the (E, iters) losses and the path that ran."""
+    step), ``mesh`` the slots of the stacked session (the loop ignores it).
+    Returns the (E, iters) losses and the path that ran."""
     return _iterative_sessions(
         "splitnn", extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode,
-        active_steps=active_steps,
+        active_steps=active_steps, mesh=mesh,
     )
 
 
 def fedcvt_sessions_seeds(
     extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, xs_u_per_entry,
-    u_schedules, mode="auto", active_steps=None,
+    u_schedules, mode="auto", active_steps=None, mesh=None,
 ) -> Tuple[torch.Tensor, str]:
     """E entries of one FedCVT-style session as one fold; each entry's
     private pools and unaligned schedules ride the same entry axis. As
@@ -394,17 +396,18 @@ def fedcvt_sessions_seeds(
     return _iterative_sessions(
         "fedcvt", extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode,
         xs_u_per_entry=xs_u_per_entry, u_schedules=u_schedules, active_steps=active_steps,
+        mesh=mesh,
     )
 
 
 def fedbcd_sessions_seeds(
     extractors_per_entry, classifiers, hp, q, xs_per_entry, ys, schedules, mode="auto",
-    active_steps=None,
+    active_steps=None, mesh=None,
 ) -> Tuple[torch.Tensor, str]:
     """E entries of one FedBCD-p session (Q local updates a round) as one
     fold; ``active_steps`` counts rounds. As :func:`splitnn_sessions_seeds`
     otherwise: returns the (E, rounds) losses and the path."""
     return _iterative_sessions(
         "fedbcd", extractors_per_entry, classifiers, hp, xs_per_entry, ys, schedules, mode,
-        q=q, active_steps=active_steps,
+        q=q, active_steps=active_steps, mesh=mesh,
     )

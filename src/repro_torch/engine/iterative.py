@@ -38,7 +38,9 @@ The built stacked step is cached in ``engine.sessions`` (domain
 ``"iterative"``) under :func:`session_cache_key`: the kind, each party's
 and the classifier's spec, the hyper-parameters and FedBCD's Q. The key has
 no batch width and no data shape, so the width-1 session and every fold
-share it, whichever path runs.
+share it, whichever path runs. A batch mesh (``engine.parallel``) shards
+the stacked session over its slots; on that path the key gains the mesh's
+``parallel.mesh_key``, and the per-entry loop ignores the mesh.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from repro_torch.core import estimator
 from repro_torch.core.server import concat_reps
 from repro_torch.core.ssl import cross_entropy
 from repro_torch.data.loader import epoch_batches
-from repro_torch.engine import sessions
+from repro_torch.engine import parallel, sessions
 from repro_torch.engine.local_ssl import _functional
 from repro_torch.optim import ClippedSGD, clipped_sgd_stacked_
 
@@ -461,6 +463,12 @@ def _stack_party_data(per_entry: Sequence[Sequence[torch.Tensor]]) -> List[torch
     return [torch.stack(list(col)) for col in zip(*per_entry)]
 
 
+def _entry_leaves(models) -> List[List[torch.Tensor]]:
+    """Each entry's extractor and classifier leaves, in module order (what
+    :func:`_stack_refusal` compares before any step is built)."""
+    return [[p for m in (*exts, clf) for p in m.parameters()] for exts, clf in models]
+
+
 def run_iterative_session_seeds(
     key: tuple,
     build: Callable[[], StackedIterStep],
@@ -472,6 +480,7 @@ def run_iterative_session_seeds(
     xs_u: Optional[Sequence[Sequence[torch.Tensor]]] = None,
     u_schedules: Optional[Sequence[Sequence[np.ndarray]]] = None,
     active_steps: Optional[Sequence[Optional[int]]] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, str]:
     """E entries' sessions of one step kind; trains each entry's modules
     (``models[e]``: its party extractors and classifier) in place and
@@ -491,12 +500,18 @@ def run_iterative_session_seeds(
     with ``x[rows, idx[:, i]]``, and no step reads a value back to the
     host; entries that cannot share one stack raise. ``"python"`` runs
     :func:`run_iterative_session` once an entry. ``"auto"`` stacks where
-    :func:`stack_pays`."""
-    step = sessions.cached_session("iterative", key, build)
+    :func:`stack_pays`.
+
+    A ``mesh`` (``engine.parallel``) shards the stacked session: the
+    entries are padded to a multiple of its slots with copies of entry 0
+    (its modules, data, schedules and horizon), each slot keeps its slice's
+    leaves, momentum, data, index tensors and commit mask on its device for
+    the whole session, every step launches each slot's step in turn, and
+    only the real entries are written back; the key gains
+    ``parallel.mesh_key``. The loop has no stacked axis and ignores it."""
     num = len(models)
     has_u = xs_u is not None
-    own = step.param_lists(models)
-    refusal = _stack_refusal(own, xs, y, schedules, xs_u, u_schedules)
+    refusal = _stack_refusal(_entry_leaves(models), xs, y, schedules, xs_u, u_schedules)
     path = resolve_mode(mode, refusal is None and stack_pays(num))
     if path == "vmap" and refusal is not None:
         raise ValueError(
@@ -505,6 +520,7 @@ def run_iterative_session_seeds(
         )
     active = [None] * num if active_steps is None else list(active_steps)
     if path == "python":
+        step = sessions.cached_session("iterative", key, build)
         losses = [
             run_iterative_session(
                 step.loop_step(exts, clf), xs[e], y[e], schedules[e],
@@ -515,32 +531,67 @@ def run_iterative_session_seeds(
         return torch.stack(losses), path
 
     dev = y[0].device
+    mesh = parallel.resolve_mesh(mesh, dev)
+    if mesh is not None:
+        key = key + (parallel.mesh_key(mesh),)
+    step = sessions.cached_session("iterative", key, build)
     iters = schedules[0].shape[0]
+    models, xs, y, schedules, active = (
+        parallel.pad_entries(a, mesh) for a in (models, xs, y, schedules, active)
+    )
+    if has_u:
+        xs_u, u_schedules = (parallel.pad_entries(a, mesh) for a in (xs_u, u_schedules))
+    own = step.param_lists(models)  # a padded entry's are entry 0's: read, never written
     with torch.no_grad():
         flat = [torch.stack(ps) for ps in zip(*own)]
-    trace = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
-    views = step.views(flat)
-    stack_x = _stack_party_data(xs)
-    stack_y = torch.stack(list(y))
-    idx = torch.from_numpy(np.stack(schedules)).to(dev)
-    if has_u:
-        stack_u = _stack_party_data(xs_u)
-        u_idx = [torch.from_numpy(np.stack(col)).to(dev) for col in zip(*u_schedules)]
     horizon = [iters if a is None else int(a) for a in active]
-    # steps before the first stall commit everywhere: no mask to apply there
-    first_stall = min(horizon)
-    valid = torch.arange(iters)[None, :] < torch.tensor(horizon)[:, None]
-    valid = valid.to(dev)
-    rows = torch.arange(num, device=dev)[:, None]
-    losses = torch.empty(num, iters, device=dev)
+    valid = (torch.arange(iters)[None, :] < torch.tensor(horizon)[:, None]).to(dev)
+    stacked = (
+        flat,
+        _stack_party_data(xs),
+        torch.stack(list(y)),
+        torch.from_numpy(np.stack(schedules)).to(dev),
+        _stack_party_data(xs_u) if has_u else None,
+        [torch.from_numpy(np.stack(col)).to(dev) for col in zip(*u_schedules)] if has_u else None,
+        valid,
+    )
+    width = len(horizon) // parallel.device_fold(mesh)
+    slots = [
+        _IterSlot(step, *part, horizon[j * width : (j + 1) * width])
+        for j, part in enumerate(parallel.split_stacked(stacked, mesh))
+    ]
     for i in range(iters):
-        il = idx[:, i]
-        xb = [x[rows, il] for x in stack_x]
-        xub = [x[rows, u[:, i]] for x, u in zip(stack_u, u_idx)] if has_u else None
-        commit = None if i < first_stall else valid[:, i]
-        losses[:, i] = step.step(flat, trace, views, xb, stack_y[rows, il], xub, commit)
+        for slot in slots:
+            slot.step(step, i)
     with torch.no_grad():
-        for e, ps in enumerate(own):
-            for p, stacked in zip(ps, flat):
-                p.copy_(stacked[e])
-    return losses, path
+        flat = parallel.gather_stacked([slot.flat for slot in slots], dev)
+        for e, ps in enumerate(own[:num]):  # the real entries only
+            for p, col in zip(ps, flat):
+                p.copy_(col[e])
+    losses = parallel.gather_stacked([slot.losses for slot in slots], dev)
+    return losses[:num], path
+
+
+class _IterSlot:
+    """One mesh slot's share of a stacked iterative session, on its device:
+    its entries' stacked leaves, momentum and their views, aligned rows,
+    labels, schedules (FedCVT: private pools and unaligned schedules),
+    commit mask and losses. ``first_stall`` is its own entries' earliest
+    horizon: before it every entry commits and no mask applies."""
+
+    def __init__(self, step: StackedIterStep, flat, xs, y, idx, xs_u, u_idx, valid, horizon):
+        self.flat, self.xs, self.y, self.idx = flat, xs, y, idx
+        self.xs_u, self.u_idx, self.valid = xs_u, u_idx, valid
+        self.trace = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
+        self.views = step.views(flat)
+        self.first_stall = min(horizon)
+        self.rows = torch.arange(y.shape[0], device=y.device)[:, None]
+        self.losses = torch.empty(y.shape[0], idx.shape[1], device=y.device)
+
+    def step(self, step: StackedIterStep, i: int) -> None:
+        """Step ``i`` of every entry of the slot, launched and never read back."""
+        rows, il = self.rows, self.idx[:, i]
+        xb = [x[rows, il] for x in self.xs]
+        xub = None if self.xs_u is None else [x[rows, u[:, i]] for x, u in zip(self.xs_u, self.u_idx)]
+        commit = None if i < self.first_stall else self.valid[:, i]
+        self.losses[:, i] = step.step(self.flat, self.trace, self.views, xb, self.y[rows, il], xub, commit)

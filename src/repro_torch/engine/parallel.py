@@ -28,7 +28,10 @@ the reference's ``shard_map`` does, so the host-side protocol runs once.
   one-call form, the counterpart of ``shard_jit``.
 
 The reference's ``REPRO_DEVICE_COUNT`` switch has no counterpart: the port
-reads no environment, and the mesh arrives through the config alone.
+reads no environment, and the mesh arrives through a config alone:
+``ProtocolConfig.mesh`` for the protocol folds (and few-shot + finetune's
+finetune session), ``IterativeConfig.mesh`` for the baselines' stacked
+session (``engine.iterative.run_iterative_session_seeds``).
 """
 
 from __future__ import annotations
@@ -56,6 +59,15 @@ def resolve_mesh(mesh: Any = None, device: DeviceLike = None) -> Optional[BatchM
             return None
         mesh = make_batch_mesh(mesh, device)
     return None if mesh.size <= 1 else mesh
+
+
+def fold_mesh(mesh: Any, device: torch.device) -> Optional[BatchMesh]:
+    """:func:`resolve_mesh` for a fold on ``device``: a mesh of another
+    device type than the fold's is refused."""
+    mesh = resolve_mesh(mesh, device)
+    if mesh is not None and mesh.devices[0].type != device.type:
+        raise ValueError(f"a mesh of {mesh.devices[0].type} slots cannot shard a fold on {device}")
+    return mesh
 
 
 def device_fold(mesh: Optional[BatchMesh]) -> int:

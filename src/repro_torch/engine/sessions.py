@@ -16,7 +16,8 @@ every scenario of a fold. The keys of the domains a batch mesh shards
 end with ``engine.parallel.mesh_key``: the mesh's axis names and shape
 (None without one), never its width or its devices, so a sharded fold's
 first build is a miss of its own and every later width on that mesh shape
-a hit. The built objects hold no device; each call names the slots. The counterpart of the reference's ``model_key``
+a hit. The ``"iterative"`` domain's key gains it on the stacked path under
+a mesh only: unsharded, the loop and the stack share one key. The built objects hold no device; each call names the slots. The counterpart of the reference's ``model_key``
 is an :class:`~repro_torch.checkpoint.artifact.ExtractorSpec`: equal specs
 build the same module. :func:`module_spec` reads the spec back off a built
 module, so a task that carries only its modules still has a key.

@@ -1460,3 +1460,35 @@ def test_two_slots_of_one_card_equal_the_unsharded_fold(runner, cuda):
         assert len(la) == len(lb)
         for p, q in zip(la, lb):
             torch.testing.assert_close(p, q, atol=1e-5, rtol=0)
+
+
+def test_two_slots_of_one_card_equal_the_unsharded_vanilla_fold(cuda):
+    """``IterativeConfig.mesh`` on the card: vanilla SplitNN over 3 seeds of
+    ``hard/overlap-32`` (3 entries padded to 4) on two slots of one card
+    equals the unsharded stacked fold at 1e-5 on the metric, every loss and
+    every leaf, with equal ledgers, and launches no kernel."""
+    seeds = [0, 1, 2]
+    bundles = [scenarios.build("hard/overlap-32", seed=s, device="cuda") for s in seeds]
+    cfg = baselines.IterativeConfig(iterations=40, engine_mode="vmap")
+    card = torch.device("cuda", 0)
+    runs = {}
+    for slots, run_cfg in ((1, cfg), (2, dataclasses.replace(cfg, mesh=BatchMesh((card, card))))):
+        km0, sd0 = kops.LAUNCHES, ops.LAUNCHES
+        runs[slots] = run_seeds(
+            baselines.run_vanilla, seeds, [b.split for b in bundles], [b.extractors for b in bundles],
+            [b.ssl_cfgs for b in bundles], run_cfg, device="cuda",
+        )
+        assert (kops.LAUNCHES - km0, ops.LAUNCHES - sd0) == (0, 0)
+        assert {(r.diagnostics["engine_path"], r.diagnostics["device_fold"]) for r in runs[slots]} == {
+            ("vmap", slots)
+        }
+    for a, b in zip(runs[2], runs[1], strict=True):
+        assert abs(a.metric - b.metric) <= 1e-5
+        assert (a.ledger.total_bytes(), a.ledger.comm_times(), a.ledger.by_tag()) == (
+            b.ledger.total_bytes(), b.ledger.comm_times(), b.ledger.by_tag()
+        )
+        torch.testing.assert_close(a.diagnostics["losses"], b.diagnostics["losses"], atol=1e-5, rtol=0)
+        la, lb = (chip_smoke._params(r) for r in (a, b))
+        assert len(la) == len(lb)
+        for p, q in zip(la, lb):
+            torch.testing.assert_close(p, q, atol=1e-5, rtol=0)
