@@ -6,7 +6,8 @@ Drives ``repro_torch`` (never JAX, never the reference package) through its
 paths: training (one-shot, few-shot, the iterative baselines, few-shot +
 finetune, fault injection, the seed and scenario folds, and the scenario
 catalog), serving,
-model-zoo serving and model-zoo training. Phases, each of
+model-zoo serving, model-zoo training, and the protocol as collectives
+between party processes. Phases, each of
 which fails the run (nonzero exit, no result line) if it goes wrong:
 
 1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
@@ -195,7 +196,20 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    ``test_zoo_backbone_extractor_in_protocol`` on the port's own sequence
    data on the card (``ZooExtractorSpec``, token SSL): accuracy > 0.4,
    24576 bytes (the reference's ledger of that split) in 3 comm times,
-   27 k-means launches and the RMSNorm kernel launched both ways.
+   27 k-means launches and the RMSNorm kernel launched both ways;
+18. the protocol as collectives between party processes (``[vfl-step]``,
+   the seventh path): ``launch/vfl_step.py`` as two gloo ranks on cuda:0
+   and, spawned at the same time, two on the CPU, each pair running 20
+   vanilla steps and the one-shot session (100 local steps) at the
+   reference example's sizes (F 64, H 128, R 32, C 10, B 256, pool 1024)
+   and the session on ``hard/overlap-32``'s split, every session in f32
+   and bf16 reps, all on the same CPU-drawn draws: the collectives counted
+   in each rank (2 a vanilla step, 3 a session, their kinds), one-shot's
+   payload over the parties equal to ``run_one_shot``'s ledger on
+   ``hard/overlap-32`` (12288, 6144 bytes), exactly ``kmeans_iters + 2`` =
+   10 ``kmeans`` launches a card rank a session and none on the CPU, and
+   each card rank's final extractor and loss within VFL_STEP_TOL of the
+   largest parameter of the CPU rank's.
 
 The RMSNorm backward has ``[kernel] rmsnorm_backward`` rows at the
 training path's shapes (1024 rows at d 1024 and 3072 in bf16 and 2048 in
@@ -218,7 +232,8 @@ every row is also held against a float64 plain version.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
 5-6, then 7-8, then 9, then 9a, then 9b, then 9b', then 9c, then 10-11a, then 13,
-then 15, then 16, then 17) and read just after. Output ends
+then 15, then 16, then 17, then 18, whose launches each rank process counts
+for itself) and read just after. Output ends
 with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -236,6 +251,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -276,7 +292,7 @@ from repro_torch.kernels.kmeans import ref as kref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, vfl_step  # noqa: E402
 from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
 from repro_torch.launch.steps import make_optimizer, make_train_step  # noqa: E402
 from repro_torch.launch.mesh import BatchMesh  # noqa: E402
@@ -762,6 +778,16 @@ ZOO_VFL_BYTES = 24576
 # blocked-scan prefill and the decode kernel sum in different orders; logits
 # relative to their scale (the reference's own test holds 2e-5 at 2 layers).
 ZOO_RTOL = 1e-4
+# [vfl-step]: launch/vfl_step.py's party processes, two gloo ranks on cuda:0
+# and two on the CPU with the same draws: 20 vanilla steps and the one-shot
+# session (100 local steps, the reference example's) at the example's sizes,
+# and the session on hard/overlap-32's split, each session in f32 and bf16.
+VFL_STEP_VANILLA_STEPS = 20
+VFL_STEP_LOCAL_STEPS = vfl_step.LOCAL_STEPS
+# card against CPU ranks: each rank's final extractor and loss, relative to
+# its largest parameter (a session's SSL steps, as SESSION_RTOL in the tests)
+VFL_STEP_TOL = 1e-4
+VFL_STEP_TIMEOUT_S = 180.0
 
 
 def fail(msg: str) -> None:
@@ -3385,6 +3411,117 @@ def phase_zoo_train(line: str) -> dict:
     return totals
 
 
+def vfl_step_jobs() -> tuple:
+    """([vfl-step]'s run names, each party's jobs): 20 vanilla steps and the
+    one-shot session in f32 and bf16 at the reference example's sizes
+    (``vfl_step.example_jobs``), and the session in f32 and bf16 on
+    ``hard/overlap-32``'s split from the port's catalog build, a seeded
+    server head. Every draw comes from each job's seed on the CPU."""
+    bundle = scenarios.build("hard/overlap-32", seed=SEED, device="cpu")
+    split, spec = bundle.split, bundle.extractors[0]
+    gen = torch.Generator().manual_seed(SEED)
+    w_head = 0.3 * torch.randn(2 * spec.rep_dim, split.num_classes, generator=gen)
+    names = [
+        f"example vanilla x{VFL_STEP_VANILLA_STEPS}", "example one-shot f32",
+        "example one-shot bf16", "hard/overlap-32 one-shot f32", "hard/overlap-32 one-shot bf16",
+    ]
+    jobs = []
+    for k, (vanilla, oneshot) in enumerate(vfl_step.example_jobs(2, SEED)):
+        hard = vfl_step.PartyJob(
+            "oneshot", split.aligned[k], split.labels, w_head, VFL_STEP_LOCAL_STEPS,
+            spec.hidden[0], spec.rep_dim, x_u=split.unaligned[k], seed=SEED,
+        )
+        jobs.append([
+            dataclasses.replace(vanilla, steps=VFL_STEP_VANILLA_STEPS),
+            oneshot,
+            dataclasses.replace(oneshot, rep_dtype=torch.bfloat16),
+            hard,
+            dataclasses.replace(hard, rep_dtype=torch.bfloat16),
+        ])
+    return names, jobs
+
+
+def _vfl_step_run(name: str, job, card: list, cpu: list, line: str) -> int:
+    """Checks one [vfl-step] run's ranks (card and CPU) and prints its line;
+    returns the card ranks' ``kmeans`` launches."""
+    if job.kind == "vanilla":
+        want, want_km = ["all_gather", "reduce_scatter"] * job.steps, 0
+    else:
+        want, want_km = ["all_gather", "all_reduce", "all_gather"], job.kmeans_iters + 2
+    for where, runs in (("card", card), ("cpu", cpu)):
+        for r, run in enumerate(runs):
+            kinds = [op.kind for op in run["ops"]]
+            check(kinds == want, f"[vfl-step] {name}: {where} rank {r} ran {kinds}")
+            check(run["counts"]["pod_crossing"] == len(want), f"[vfl-step] {name}: {run['counts']}")
+    km = [run["kmeans_launches"] for run in card]
+    check(km == [want_km] * len(card), f"[vfl-step] {name}: card kmeans launches {km}, not {want_km}")
+    check(all(run["kmeans_launches"] == 0 for run in cpu), f"[vfl-step] {name}: a CPU rank launched")
+    sent = sum(op.payload for run in card for op in run["ops"])
+    if name.startswith("hard/overlap-32"):
+        bf16 = job.rep_dtype == torch.bfloat16
+        ledger = (CATALOG_BF16_LEDGERS if bf16 else CATALOG_LEDGERS)["hard/overlap-32"][0]
+        check(sent == ledger, f"[vfl-step] {name}: {sent} payload bytes, not run_one_shot's {ledger}")
+    errs = []
+    for r, (a, b) in enumerate(zip(card, cpu)):
+        scale = max(1.0, max(float(np.abs(v).max()) for v in b["extractor"].values()))
+        worst = max(float(np.abs(a["extractor"][k] - v).max()) for k, v in b["extractor"].items())
+        loss_err = abs(a["loss"] - b["loss"])
+        check(
+            worst <= VFL_STEP_TOL * scale and loss_err <= VFL_STEP_TOL * scale,
+            f"[vfl-step] {name}: rank {r} card vs CPU extractor {worst:.3e}, loss {loss_err:.3e} "
+            f"(scale {scale:.3f})",
+        )
+        check(math.isfinite(a["loss"]), f"[vfl-step] {name}: rank {r} loss {a['loss']}")
+        errs.append(f"{worst:.3e} / {loss_err:.3e}")
+    flips = (
+        [int((a["pseudo"] != b["pseudo"]).sum()) for a, b in zip(card, cpu)]
+        if job.kind == "oneshot" else None
+    )
+    print(
+        f"[vfl-step] {name}: {want[:3] if job.kind == 'oneshot' else want[:2]} x "
+        f"{1 if job.kind == 'oneshot' else job.steps} = {len(want)} cross-party collectives "
+        f"(counted in each rank), {card[0]['counts']['pod_crossing_bytes']} result bytes a rank, "
+        f"{sent} payload bytes over the parties | kmeans launches a rank {km} (expected "
+        f"{want_km}) | loss card {card[0]['loss']:.6f} cpu {cpu[0]['loss']:.6f} | card vs cpu "
+        f"extractor / loss max |Δ| a rank {errs} (tol {VFL_STEP_TOL} x largest parameter)"
+        + ("" if flips is None else f", pseudo-labels differing a rank {flips}")
+        + f" | job s card {[round(run['seconds'], 3) for run in card]} cpu "
+        f"{[round(run['seconds'], 3) for run in cpu]} | {line}"
+    )
+    return sum(km)
+
+
+def phase_vfl_step(line: str) -> dict:
+    """[vfl-step]: ``launch/vfl_step.py`` as two gloo party processes on
+    cuda:0 and, at the same time, two on the CPU, over :func:`vfl_step_jobs`;
+    every run checked by :func:`_vfl_step_run`. Returns the card ranks'
+    ``kmeans`` launches and the phase's seconds."""
+    names, jobs = vfl_step_jobs()
+    t0 = time.time()
+    with ThreadPoolExecutor(1) as pool:
+        cpu_future = pool.submit(
+            vfl_step.run_parties, vfl_step.run_party_jobs, [("cpu", j) for j in jobs],
+            VFL_STEP_TIMEOUT_S,
+        )
+        card = vfl_step.run_parties(
+            vfl_step.run_party_jobs, [("cuda", j) for j in jobs], VFL_STEP_TIMEOUT_S
+        )
+        card_s = time.time() - t0
+        cpu = cpu_future.result()
+    wall = time.time() - t0
+    launches = sum(
+        _vfl_step_run(name, jobs[0][i], [rank[i] for rank in card], [rank[i] for rank in cpu], line)
+        for i, name in enumerate(names)
+    )
+    print(
+        f"[vfl-step] 2 gloo ranks on cuda:0 and 2 on the CPU, spawned together: the card's "
+        f"group {card_s:.1f} s from spawn to exit, both {wall:.1f} s | {line}"
+    )
+    sessions = [j for j in jobs[0] if j.kind == "oneshot"]
+    expected = len(jobs) * sum(j.kmeans_iters + 2 for j in sessions)
+    return {"kmeans": launches, "expected": expected, "wall": wall, "sessions": len(sessions)}
+
+
 def _zero_counters() -> None:
     torch.cuda.synchronize()
     ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
@@ -3671,6 +3808,21 @@ def main() -> int:
         f"and 49 / 0 an enc_out) in {families_s:.1f} s"
     )
     train, vfl, train_s, vfl_s = run_training_paths(line)
+
+    # ---- the party processes: counters from 0, read right after (the
+    # kernel launches in the card's two rank processes, each counting its own)
+    _zero_counters()
+    vst = phase_vfl_step(line)
+    torch.cuda.synchronize()
+    vst_km, want_vst = vst["kmeans"], vst["expected"]
+    check(vst_km == want_vst, f"[vfl-step] kmeans launched {vst_km} times, expected {want_vst}")
+    here = (ops.LAUNCHES, kops.LAUNCHES, rops.LAUNCHES, rops.BACKWARD_LAUNCHES, dops.LAUNCHES)
+    check(here == (0,) * 5, f"[vfl-step] a kernel launched in the driving process: {here}")
+    print(
+        f"[path] vfl-step: kmeans launches {vst_km} (expected {want_vst}: kmeans_iters + 2 = "
+        f"{vfl_step.PartyJob.kmeans_iters + 2} a rank a one-shot session, {vst['sessions']} "
+        f"sessions on 2 card ranks; the vanilla steps launch none) in {vst['wall']:.1f} s"
+    )
     print(
         f"[time] {time.time() - t_start:.1f} s from the build on; few-shot phases "
         f"{few_shot_s:.1f} s; baselines A {baselines_a_s:.1f} s, baselines B {baselines_b_s:.1f} "
@@ -3682,7 +3834,7 @@ def main() -> int:
         f"share: kernel phases "
         f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s, "
         f"reduced families {families_small_s:.1f} s, full-width families {families_s:.1f} s, "
-        f"zoo-train {train_s:.1f} s, zoo-vfl {vfl_s:.1f} s"
+        f"zoo-train {train_s:.1f} s, zoo-vfl {vfl_s:.1f} s; vfl-step {vst['wall']:.1f} s"
     )
 
     def entry(name, source, replaces, count, row):
@@ -3709,7 +3861,7 @@ def main() -> int:
             "kmeans",
             "src/repro_torch/kernels/kmeans/csrc/kmeans_assign.cu",
             "src/repro/kernels/kmeans/kernel.py:32",
-            km_launches + few_km + ft_km + cat_km + flt_km + fld_km + msh_km,
+            km_launches + few_km + ft_km + cat_km + flt_km + fld_km + msh_km + vst_km,
             kmeans_row,
         ),
         entry(

@@ -2,8 +2,10 @@
 
 Counterpart of ``repro.engine.local_ssl``: ``build_schedule`` is the same
 numpy-seeded epoch×minibatch schedule (so equal ``seed0`` gives equal
-indices), and ``train_party_ssl`` runs it as a Python loop of steps, each
-one minibatch of Eq. (4) followed by clip-5 SGD with momentum.
+indices), and ``train_party_ssl`` runs it as a Python loop of the one
+step of :func:`make_ssl_step_fn`, one minibatch of Eq. (4) followed by
+clip-5 SGD with momentum (:func:`make_ssl_optimizer`). ``launch.vfl_step``
+takes its full-batch steps from the same function.
 
 ``train_parties_ssl_stacked`` is the counterpart of the reference's
 ``train_parties_ssl_vmapped``: E homogeneous tasks (parties, seeds and
@@ -118,6 +120,56 @@ def seed_from(gen: torch.Generator) -> int:
     return int(torch.randint(0, 2**31 - 1, (), generator=gen, device=gen.device))
 
 
+class PartyParams(NamedTuple):
+    """(extractor, head) modules of one party's local model."""
+
+    extractor: nn.Module
+    head: nn.Module
+
+
+def make_ssl_optimizer(hp: SSLHParams, params: PartyParams) -> ClippedSGD:
+    """Clip by global norm, then SGD with momentum, over the extractor's and
+    then the head's parameters (the reference's ``make_ssl_optimizer``)."""
+    return ClippedSGD(
+        [*params.extractor.parameters(), *params.head.parameters()],
+        hp.learning_rate,
+        hp.momentum,
+        hp.grad_clip,
+    )
+
+
+def make_ssl_step_fn(extractor: nn.Module, head: nn.Module, ssl_cfg: SSLConfig):
+    """THE local-SSL step: every caller in the port takes its step from here.
+
+    Returns ``step(params, opt, feature_mean, draws, xb_l, yb_l, xb_u,
+    mb_l=None, mb_u=None, commit=True) -> metrics``: one minibatch of
+    Eq. (4) through ``head(extractor(x))``, then ``opt``'s update of
+    ``params`` in place. ``params`` are the modules it was built from (the
+    reference passes the pytrees its models apply; here the modules hold
+    them). ``draws`` are the step's augmentation draws; ``mb_l`` / ``mb_u``
+    the minibatch rows of the validity masks (None: every row counts). A
+    step with ``commit`` False computes its loss and metrics and updates
+    nothing. The metrics are detached tensors."""
+
+    def logits_fn(x: torch.Tensor) -> torch.Tensor:
+        return head(extractor(x))
+
+    def step(params, opt, feature_mean, draws, xb_l, yb_l, xb_u, mb_l=None, mb_u=None, commit=True):
+        if params.extractor is not extractor or params.head is not head:
+            raise ValueError("the step trains the modules it was built from")
+        with torch.set_grad_enabled(commit):
+            loss, metrics = ssl_loss(
+                logits_fn, xb_l, yb_l, xb_u, ssl_cfg, draws, feature_mean, mb_l, mb_u
+            )
+        if commit:
+            # zeros for a parameter the loss does not reach (an untied zoo
+            # backbone's unembed), as jax.grad gives them
+            opt.step(torch.autograd.grad(loss, opt.params, allow_unused=True, materialize_grads=True))
+        return metrics
+
+    return step
+
+
 def train_party_ssl(
     task: PartyTask,
     hp: SSLHParams,
@@ -147,11 +199,9 @@ def train_party_ssl(
     dev = task.x_labeled.device
     idx_l = torch.from_numpy(sched.idx_labeled).to(dev)
     idx_u = torch.from_numpy(sched.idx_unlabeled).to(dev)
-    params = [*task.extractor.parameters(), *task.head.parameters()]
-    opt = ClippedSGD(params, hp.learning_rate, hp.momentum, hp.grad_clip)
-
-    def logits_fn(x: torch.Tensor) -> torch.Tensor:
-        return task.head(task.extractor(x))
+    params = PartyParams(task.extractor, task.head)
+    opt = make_ssl_optimizer(hp, params)
+    step = make_ssl_step_fn(task.extractor, task.head, task.ssl_cfg)
 
     metrics: Dict[str, torch.Tensor] = {}
     for i in range(steps):
@@ -162,23 +212,18 @@ def train_party_ssl(
             if step_draws is not None
             else draw_ssl(generator, task.ssl_cfg, xb_l.shape, xb_u.shape, dev)
         )
-        commit = valid is None or valid[i]
-        with torch.set_grad_enabled(commit):
-            loss, metrics = ssl_loss(
-                logits_fn,
-                xb_l,
-                task.y_pseudo[il],
-                xb_u,
-                task.ssl_cfg,
-                draws,
-                task.feature_mean,
-                None if task.labeled_mask is None else task.labeled_mask[il],
-                None if task.unlabeled_mask is None else task.unlabeled_mask[iu],
-            )
-        if commit:
-            # zeros for a parameter the loss does not reach (an untied zoo
-            # backbone's unembed), as jax.grad gives them
-            opt.step(torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True))
+        metrics = step(
+            params,
+            opt,
+            task.feature_mean,
+            draws,
+            xb_l,
+            task.y_pseudo[il],
+            xb_u,
+            None if task.labeled_mask is None else task.labeled_mask[il],
+            None if task.unlabeled_mask is None else task.unlabeled_mask[iu],
+            commit=valid is None or valid[i],
+        )
     return {k: float(v) for k, v in metrics.items()}
 
 

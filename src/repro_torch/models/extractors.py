@@ -44,8 +44,11 @@ def _conv_same(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 
 
 def _he_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """He-normal ``weight``, drawn on the generator's device."""
     with torch.no_grad():
-        draw = torch.randn(weight.shape, generator=generator, dtype=torch.float32)
+        draw = torch.randn(
+            weight.shape, generator=generator, dtype=torch.float32, device=generator.device
+        )
         weight.copy_(draw * math.sqrt(2.0 / fan_in))
 
 

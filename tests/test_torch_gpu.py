@@ -42,7 +42,7 @@ from repro_torch.kernels.kmeans import ref as kref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
-from repro_torch.launch import batching, vfl_serve  # noqa: E402
+from repro_torch.launch import batching, vfl_serve, vfl_step  # noqa: E402
 from repro_torch.launch.mesh import BatchMesh  # noqa: E402
 from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
 from repro_torch.launch.vfl_serve import KernelRouter, ServingEngine  # noqa: E402
@@ -1492,3 +1492,27 @@ def test_two_slots_of_one_card_equal_the_unsharded_vanilla_fold(cuda):
         assert len(la) == len(lb)
         for p, q in zip(la, lb):
             torch.testing.assert_close(p, q, atol=1e-5, rtol=0)
+
+
+def test_party_processes_on_one_card_equal_the_cpu_ranks(cuda):
+    """``launch/vfl_step.py`` on the card: two gloo ranks on cuda:0 run the
+    one-shot session at 10 local steps and 3 vanilla steps on
+    ``hard/overlap-32``'s split. The collectives counted on the card, the
+    vanilla backward's reduce-scatter included, are the CPU ranks' kinds: 3
+    for the session, 2 a vanilla step. Each card rank launches ``kmeans``
+    10 times in the session, and its extractor and loss are within 1e-4 of
+    the largest parameter of two CPU ranks' on the same draws."""
+    _, jobs = chip_smoke.vfl_step_jobs()
+    jobs = [[dataclasses.replace(j[3], steps=10), dataclasses.replace(j[0], steps=3)] for j in jobs]
+    card = vfl_step.run_parties(vfl_step.run_party_jobs, [("cuda", j) for j in jobs], 180.0)
+    cpu = vfl_step.run_parties(vfl_step.run_party_jobs, [("cpu", j) for j in jobs], 180.0)
+    wants = (["all_gather", "all_reduce", "all_gather"], ["all_gather", "reduce_scatter"] * 3)
+    for a_rank, b_rank in zip(card, cpu, strict=True):
+        for i, (a, b) in enumerate(zip(a_rank, b_rank, strict=True)):
+            assert [op.kind for op in a["ops"]] == [op.kind for op in b["ops"]] == wants[i]
+            assert a["counts"] == b["counts"] and a["counts"]["pod_crossing"] == len(wants[i])
+            assert (a["kmeans_launches"], b["kmeans_launches"]) == ((10, 0) if i == 0 else (0, 0))
+            scale = max(1.0, max(float(np.abs(v).max()) for v in b["extractor"].values()))
+            for k, v in b["extractor"].items():
+                assert np.abs(a["extractor"][k] - v).max() <= 1e-4 * scale
+            assert abs(a["loss"] - b["loss"]) <= 1e-4 * scale

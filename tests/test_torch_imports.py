@@ -66,6 +66,7 @@ def no_card():
 def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card, tmp_path):
     from repro_torch import resolve_device
     from repro_torch.checkpoint import ExtractorSpec, init_artifact, load_artifact
+    from repro_torch.launch import vfl_step
     from repro_torch.launch.vfl_serve import ServingEngine, main
 
     specs = [ExtractorSpec("mlp", 4, hidden=(8,))] * 2
@@ -81,6 +82,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card, tmp_path
         load_artifact(str(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--artifact", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vfl_step.main([])  # before any party process is spawned
     # an engine on the CPU serves the CPU artifact
     logits = ServingEngine(art, capacity=4, device="cpu").predict_logits([torch.zeros(5, 3)] * 2)
     assert logits.shape == (5, 2)
