@@ -209,7 +209,21 @@ which fails the run (nonzero exit, no result line) if it goes wrong:
    ``hard/overlap-32`` (12288, 6144 bytes), exactly ``kmeans_iters + 2`` =
    10 ``kmeans`` launches a card rank a session and none on the CPU, and
    each card rank's final extractor and loss within VFL_STEP_TOL of the
-   largest parameter of the CPU rank's.
+   largest parameter of the CPU rank's;
+19. the multi-pod dry-run (``[dryrun]``, after 13): ``python -m
+   repro_torch.launch.dryrun`` in two subprocesses started together on
+   the CPU's fake mesh, ``mamba2-370m`` × ``long_500k`` at 16x16 and
+   2x16x16 and ``phi4-mini-3.8b`` × ``decode_32k`` at 16x16: each record's
+   parameter count equal to ``param_shapes()``'s, positive per-device dot
+   FLOPs and traffic, the children never initialising CUDA, this
+   process's card memory unchanged;
+20. the trace counter on the card (``[roofline]``, the eighth path):
+   ``roofline.trace_analysis.TraceCounter`` over one full-width phi4-mini
+   decode step with 13's weights (the ``rmsnorm`` and ``decode_attention``
+   kernels declaring their costs): its kernel calls equal the launches,
+   the 2-layer variant's dot FLOPs equal the CPU plain route's to the
+   FLOP, and the step floor's weight bytes <= the memory term <= the
+   measured p50; 19 and 20 within ROOFLINE_BUDGET_S.
 
 The RMSNorm backward has ``[kernel] rmsnorm_backward`` rows at the
 training path's shapes (1024 rows at d 1024 and 3072 in bf16 and 2048 in
@@ -232,8 +246,8 @@ every row is also held against a float64 plain version.
 
 Kernel launch counters are set to 0 just before each path (phases 3-4, then
 5-6, then 7-8, then 9, then 9a, then 9b, then 9b', then 9c, then 10-11a, then 13,
-then 15, then 16, then 17, then 18, whose launches each rank process counts
-for itself) and read just after. Output ends
+then 19-20, then 15, then 16, then 17, then 18, whose launches each rank
+process counts for itself) and read just after. Output ends
 with a ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -269,7 +283,7 @@ from repro_torch.checkpoint import (  # noqa: E402
     save_artifact,
 )
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.configs.base import INPUT_SHAPES, InputShape  # noqa: E402
 from repro_torch.core import baselines, estimator  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
     KMEANS_RESTARTS,
@@ -293,7 +307,7 @@ from repro_torch.kernels.rmsnorm import ops as rops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rref  # noqa: E402
 from repro_torch.kernels.sdpa_estimator import ops, ref  # noqa: E402
 from repro_torch.launch import serve, vfl_step  # noqa: E402
-from repro_torch.launch.specs import zeros_like_spec  # noqa: E402
+from repro_torch.launch.specs import leaves, zeros_like_spec  # noqa: E402
 from repro_torch.launch.steps import make_optimizer, make_train_step  # noqa: E402
 from repro_torch.launch.mesh import BatchMesh  # noqa: E402
 from repro_torch.launch.vfl_serve import ServingEngine, serve_traffic, serving_path  # noqa: E402
@@ -301,7 +315,7 @@ from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models import moe as zoo_moe  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.models.zoo_extractor import ZooExtractorSpec, make_zoo_extractor  # noqa: E402
-from repro_torch.roofline import HW, model_flops  # noqa: E402
+from repro_torch.roofline import HW, TraceCounter, model_flops, roofline_terms  # noqa: E402
 
 SEED = 0
 N_O = 2048  # overlap rows: the Eq. 10 keys/values
@@ -2866,7 +2880,7 @@ def step_floor_ms(cfg, params) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations", every
 
 
-def phase_zoo_serve(name: str, line: str, tag: str, totals: dict, window=None):
+def phase_zoo_serve(name: str, line: str, tag: str, totals: dict, window=None, keep=False):
     """A config at full width (cut to ZOO_DEPTH layers where it has one;
     ``window`` its window_override) through ``launch/serve``: the exact
     parameter count; prefill + greedy decode at batch 4, prompt 32, 16 new
@@ -2877,7 +2891,8 @@ def phase_zoo_serve(name: str, line: str, tag: str, totals: dict, window=None):
     over all 48 positions under a window (its ring wraps twice). qwen2-vl
     also runs a prefill_fn over its 1024-row patch prefix and 1024 text
     tokens. Every part's launches are checked exactly and added to
-    ``totals``. Returns the config and the card's generator."""
+    ``totals``. Returns the config, the card's generator and, with
+    ``keep``, the parameters (not freed; else None)."""
     cfg = _full_cfg(name)
     per_step = ZOO_LAUNCHES[name]
     enc_rms = encoder_norms(cfg)
@@ -3007,16 +3022,18 @@ def phase_zoo_serve(name: str, line: str, tag: str, totals: dict, window=None):
             f"logits finite, {vms:.1f} ms, peak memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
         )
+    kept = params if keep else None
     del params, model, model32, cache
     torch.cuda.empty_cache()
-    return cfg, gen
+    return cfg, gen, kept
 
 
-def phase_zoo(line: str) -> dict:
+def phase_zoo(line: str) -> tuple:
     """phi4-mini-3.8b at full width through ``launch/serve``, then one
-    ``make_zoo_extractor`` forward; returns the path's launch counts."""
+    ``make_zoo_extractor`` forward; returns the path's launch counts, the
+    config and its parameters (for ``[roofline]``)."""
     totals = {"rmsnorm": 0, "decode_attention": 0}
-    cfg, gen = phase_zoo_serve(ZOO_ARCH, line, "zoo", totals)
+    cfg, gen, params = phase_zoo_serve(ZOO_ARCH, line, "zoo", totals, keep=True)
     ext = make_zoo_extractor(cfg, rep_dim=128, device="cuda")
     ext.init_(torch.Generator(device="cuda").manual_seed(SEED + 2))
     rows = torch.randint(0, cfg.vocab_size, (8, 64), generator=gen, device="cuda")
@@ -3030,7 +3047,175 @@ def phase_zoo(line: str) -> dict:
     )
     del ext
     torch.cuda.empty_cache()
-    return totals
+    return totals, cfg, params
+
+
+# [dryrun]: the port's dry-run CLI on the reference's integration pair (at
+# 16x16 and 2x16x16) and on phi4-mini's decode step (16x16), each a
+# subprocess; [roofline] and [dryrun] together within ROOFLINE_BUDGET_S
+DRYRUN_PAIRS = (("mamba2-370m", "long_500k", True), (ZOO_ARCH, "decode_32k", False))
+ROOFLINE_BUDGET_S = 60.0
+ROOFLINE_STEPS = 20  # timed decode steps of [roofline] (after 3 warm-up ones)
+
+
+def phase_dryrun(line: str) -> dict:
+    """``python -m repro_torch.launch.dryrun`` in subprocesses, started
+    together, on the CPU's fake mesh: each record's parameter count equal to
+    its config's ``param_shapes()``, positive per-device dot FLOPs and
+    traffic, the child's last line saying it never initialised CUDA, and
+    this process's allocated card memory unchanged. Returns the records by
+    tag and the wall seconds."""
+    from repro_torch.launch import dryrun
+
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.time()
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    with tempfile.TemporaryDirectory() as out:
+        procs = []
+        for arch, shape, both in DRYRUN_PAIRS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape, "--out", out] + (["--both-meshes"] if both else [])
+            procs.append(subprocess.Popen(
+                cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            ))
+        try:
+            results = [p.communicate(timeout=ROOFLINE_BUDGET_S) for p in procs]
+        finally:  # a child past the budget is stopped, not left behind
+            for p in procs:
+                p.kill()
+        recs = {}
+        for (arch, shape, both), p, (stdout, stderr) in zip(DRYRUN_PAIRS, procs, results):
+            if p.returncode != 0:
+                errs = [open(os.path.join(out, f)).read()[-3000:] for f in sorted(os.listdir(out))
+                        if f.endswith(".err")]
+                fail(f"[dryrun] {arch} {shape}: exit {p.returncode}: {stdout[-1000:]} {stderr[-1000:]} "
+                     f"{' '.join(errs)}")
+            last = stdout.strip().splitlines()[-1]
+            check(last.endswith("torch.cuda.is_initialized()=False"), f"[dryrun] child: {last!r}")
+            for mesh in ("16x16", "2x16x16") if both else ("16x16",):
+                tag = f"{arch}__{shape}__{mesh}"
+                with open(os.path.join(out, tag + ".json")) as f:
+                    recs[tag] = json.load(f)
+    wall = time.time() - t0
+    check(torch.cuda.memory_allocated() == allocated, "[dryrun] the card's allocated memory moved")
+    for tag, rec in recs.items():
+        arch, shape, _ = tag.split("__")
+        cfg = dryrun.config_for(arch, INPUT_SHAPES[shape])
+        want = sum(math.prod(t.shape) for t in leaves(build_model(cfg).param_shapes()))
+        ha, rf = rec["hlo_analysis"], rec["roofline"]
+        check(rec["num_params"] == want, f"[dryrun] {tag}: {rec['num_params']} parameters, not {want}")
+        check(ha["dot_flops"] > 0 and ha["traffic_bytes"] > 0, f"[dryrun] {tag}: empty counts")
+        counts = {k: v for k, v in ha["collective_counts"].items() if v}
+        print(
+            f"[dryrun] {tag} (route {rec['route']}): {rec['num_params']} parameters | per device: "
+            f"dot FLOPs {ha['dot_flops']:.4e}, traffic {ha['traffic_bytes']:.4e} B, collectives "
+            f"{ha['total_collective_bytes']:.4e} B {counts} | compute {rf['compute_s']:.4e} s, "
+            f"memory {rf['memory_s']:.4e} s, collective {rf['collective_s']:.4e} s -> "
+            f"{rf['bottleneck']}; useful FLOPs ratio {rf['useful_flops_ratio']:.4f} | stacks "
+            f"{ha['while_trip_counts']} | trace {rec['lower_s']} s | {line}"
+        )
+    print(f"[dryrun] {len(recs)} records in {wall:.1f} s (the subprocesses together), the card "
+          f"untouched ({allocated} bytes allocated before and after)")
+    return {"records": recs, "wall": wall}
+
+
+def _decode_inputs(model, batch: int, slots: int, device, pos: int) -> tuple:
+    cache = zeros_like_spec(model.cache_shapes(batch, slots), device)
+    step = {
+        "token": torch.ones(batch, 1, dtype=torch.int32, device=device),
+        "pos": torch.full((batch, 1), pos, dtype=torch.int32, device=device),
+    }
+    return cache, step
+
+
+def _counted_step(model, params, cache, step) -> tuple:
+    """One decode step under the trace counter → (its cost, the RMSNorm and
+    decode-attention launches it made)."""
+    torch.cuda.synchronize()
+    before = (rops.LAUNCHES, dops.LAUNCHES)
+    with TraceCounter() as counter:
+        model.decode_fn(params, cache, step)
+    torch.cuda.synchronize()
+    return counter.cost, (rops.LAUNCHES - before[0], dops.LAUNCHES - before[1])
+
+
+def phase_roofline(cfg, params, line: str) -> dict:
+    """The trace counter on the card: one decode step of ``cfg`` at batch
+    ZOO_BATCH against a cache of ZOO_PROMPT + ZOO_GEN slots, with [zoo]'s
+    parameters, in which the ``rmsnorm`` and ``decode_attention`` kernels
+    run and declare their costs. Held: the counter's kernel calls equal the
+    LAUNCHES deltas; on the 2-layer variant (the same parameters' first two
+    blocks) the card's dot FLOPs equal, to the FLOP, the counter's over the
+    CPU's plain route on the same shapes (fake tensors: the kernels'
+    declared attention FLOPs stand in for the plain einsums); at full width
+    the step floor's weight-bytes term <= the memory term <= the measured
+    p50 a step. Returns the launches and the wall seconds."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    t0 = time.time()
+    slots = ZOO_PROMPT + ZOO_GEN
+    device = params.embed.tok.device
+    model = build_model(cfg)
+    cache, step = _decode_inputs(model, ZOO_BATCH, slots, device, 0)
+    cost, launched = _counted_step(model, params, cache, step)
+    calls = {"rmsnorm": launched[0], "decode_attention": launched[1]}
+    check(cost.kernel_calls == calls, f"[roofline] kernel calls {cost.kernel_calls}, launches {calls}")
+    want = {"rmsnorm": 2 * cfg.num_layers + 1, "decode_attention": cfg.num_layers}
+    check(calls == want, f"[roofline] launches {calls}, not {want}")
+    terms = roofline_terms({"dot_flops": cost.dot_flops, "traffic_bytes": cost.traffic_bytes,
+                            "collective_bytes": cost.total_collective_bytes})
+
+    times = []
+    for i in range(3 + ROOFLINE_STEPS):  # the counted step wrote position 0
+        step["pos"].fill_(i + 1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.decode_fn(params, cache, step)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    p50 = float(np.percentile(times[3:], 50))
+    floor, floor_by, _ = step_floor_ms(cfg, params)
+    check(floor_by == "bytes", f"[roofline] the step floor is bound by {floor_by}")
+    mem_ms = terms["memory_s"] * 1e3
+    check(floor <= mem_ms <= p50, f"[roofline] floor {floor} ms, memory {mem_ms} ms, p50 {p50} ms")
+
+    # the 2-layer variant: the card's kernels against the CPU's plain route
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model2 = build_model(cfg2)
+    params2 = copy.copy(params)
+    params2._modules = dict(params._modules)
+    params2._modules["blocks"] = torch.nn.ModuleList(list(params.blocks)[:2])
+    cache2, step2 = _decode_inputs(model2, ZOO_BATCH, slots, device, 0)
+    card2, launched2 = _counted_step(model2, params2, cache2, step2)
+    with FakeTensorMode():
+        plain_params = model_zoo.make_backbone(cfg2, "cpu")
+        cache_c, step_c = _decode_inputs(model2, ZOO_BATCH, slots, "cpu", 0)
+        with TraceCounter() as plain:
+            model2.decode_fn(plain_params, cache_c, step_c)
+    plain = plain.cost
+    check(plain.kernel_calls == {}, f"[roofline] the CPU's plain route reported {plain.kernel_calls}")
+    check(card2.dot_flops == plain.dot_flops,
+          f"[roofline] 2 layers: card dot FLOPs {card2.dot_flops}, CPU plain {plain.dot_flops}")
+    check(card2.kernel_calls == {"rmsnorm": launched2[0], "decode_attention": launched2[1]},
+          f"[roofline] 2 layers: kernel calls {card2.kernel_calls}, launches {launched2}")
+    wall = time.time() - t0
+    print(
+        f"[roofline] {cfg.name} decode step at batch {ZOO_BATCH}, {slots} cache slots, on the card "
+        f"under the trace counter: dot FLOPs {cost.dot_flops:.6e}, traffic "
+        f"{cost.traffic_bytes:.6e} B, kernel calls {cost.kernel_calls} (= the launches) | on "
+        f"{HW.name}: compute {terms['compute_s'] * 1e3:.4f} ms, memory {mem_ms:.4f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.4f} ms -> {terms['bottleneck']} | measured p50 "
+        f"{p50:.3f} ms a step over {ROOFLINE_STEPS}, step floor {floor:.3f} ms ({floor_by}) | "
+        f"{line}"
+    )
+    print(
+        f"[roofline] 2-layer variant: card dot FLOPs {card2.dot_flops:.0f} (kernel calls "
+        f"{card2.kernel_calls}) = CPU plain route {plain.dot_flops:.0f}; traffic card "
+        f"{card2.traffic_bytes:.6e} B (the kernels' declared bytes), plain "
+        f"{plain.traffic_bytes:.6e} B; {wall:.1f} s"
+    )
+    del cache, cache2, params2
+    return {"wall": wall, "p50_ms": p50}
 
 
 def _bwd_oracle64(x, scale, dy, eps: float = 1e-6):
@@ -3772,7 +3957,7 @@ def main() -> int:
     torch.cuda.synchronize()
     ops.LAUNCHES = kops.LAUNCHES = rops.LAUNCHES = rops.BACKWARD_LAUNCHES = dops.LAUNCHES = 0
     t0 = time.time()
-    zoo = phase_zoo(line)
+    zoo, zoo_cfg, zoo_params = phase_zoo(line)
     torch.cuda.synchronize()
     zoo_s = time.time() - t0
     check(ops.LAUNCHES == kops.LAUNCHES == 0, "a VFL kernel launched on the zoo path")
@@ -3780,6 +3965,29 @@ def main() -> int:
         f"[path] zoo: rmsnorm launches {zoo['rmsnorm']}, decode_attention launches "
         f"{zoo['decode_attention']} (each part exactly 65 / 32 per decode step, 65 / 0 per "
         f"prefill_fn and extractor forward) in {zoo_s:.1f} s"
+    )
+
+    # ---- the dry-run and the trace counter on the card: counters from 0, read right after
+    _zero_counters()
+    t0 = time.time()
+    dry = phase_dryrun(line)
+    roof = phase_roofline(zoo_cfg, zoo_params, line)
+    torch.cuda.synchronize()
+    roofline_s = time.time() - t0
+    del zoo_params
+    torch.cuda.empty_cache()
+    roof_launches = {"rmsnorm": rops.LAUNCHES, "decode_attention": dops.LAUNCHES}
+    check(ops.LAUNCHES == kops.LAUNCHES == rops.BACKWARD_LAUNCHES == 0, "a VFL kernel in [roofline]")
+    per_step = ZOO_LAUNCHES[ZOO_ARCH]  # and the 2-layer step's 2·2 + 1 and 2
+    want_roof = {"rmsnorm": (ROOFLINE_STEPS + 4) * per_step[0] + 5,
+                 "decode_attention": (ROOFLINE_STEPS + 4) * per_step[1] + 2}
+    check(roof_launches == want_roof, f"[roofline] launches {roof_launches}, not {want_roof}")
+    check(roofline_s <= ROOFLINE_BUDGET_S, f"[dryrun] + [roofline] took {roofline_s:.1f} s")
+    print(
+        f"[path] roofline: rmsnorm launches {roof_launches['rmsnorm']}, decode_attention "
+        f"launches {roof_launches['decode_attention']} ({ROOFLINE_STEPS + 4} full-width decode "
+        f"steps, one under the counter, and one 2-layer step); [dryrun] {dry['wall']:.1f} s + "
+        f"[roofline] {roof['wall']:.1f} s = {roofline_s:.1f} s (budget {ROOFLINE_BUDGET_S:.0f} s)"
     )
 
     t0 = time.time()
@@ -3834,7 +4042,8 @@ def main() -> int:
         f"share: kernel phases "
         f"{zoo_kernels_s:.1f} s, reduced zoo {zoo_small_s:.1f} s, full-width path {zoo_s:.1f} s, "
         f"reduced families {families_small_s:.1f} s, full-width families {families_s:.1f} s, "
-        f"zoo-train {train_s:.1f} s, zoo-vfl {vfl_s:.1f} s; vfl-step {vst['wall']:.1f} s"
+        f"zoo-train {train_s:.1f} s, zoo-vfl {vfl_s:.1f} s; vfl-step {vst['wall']:.1f} s; "
+        f"dryrun + roofline {roofline_s:.1f} s"
     )
 
     def entry(name, source, replaces, count, row):
@@ -3868,7 +4077,8 @@ def main() -> int:
             "rmsnorm",
             "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             "src/repro/kernels/rmsnorm/kernel.py:21",
-            zoo["rmsnorm"] + fam["rmsnorm"] + train["rmsnorm"] + vfl["rmsnorm"],
+            zoo["rmsnorm"] + roof_launches["rmsnorm"] + fam["rmsnorm"] + train["rmsnorm"]
+            + vfl["rmsnorm"],
             rms_row,
         ),
         entry(
@@ -3883,7 +4093,7 @@ def main() -> int:
             "decode_attention",
             "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:25",
-            zoo["decode_attention"] + fam["decode_attention"],
+            zoo["decode_attention"] + roof_launches["decode_attention"] + fam["decode_attention"],
             decode_row,
         ),
     ]

@@ -44,7 +44,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _costs
 from repro_torch.kernels.decode_attention import ref
 
 # The kernel's geometry (csrc names in brackets). The plan below is computed
@@ -403,6 +403,10 @@ def launch(
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError_t {err}")
     LAUNCHES += 1
+    if _costs.COUNTERS:  # q·K and P·V over every slot; both caches, q and out once, the masks
+        masks = sum(4 * t.numel() for t in (lengths, key_pos, q_pos) if t is not None)
+        nbytes = 2 * b * s * hkv * dh * k_cache.element_size() + 2 * b * h * dh * 4 + masks
+        _costs.report("decode_attention", 4 * b * h * s * dh, nbytes)
     return out
 
 

@@ -48,7 +48,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _costs
 from repro_torch.kernels.kmeans import ref
 
 # The kernel's geometry (csrc names in brackets). The plan below is computed
@@ -325,6 +325,9 @@ def launch(
     if err != 0:
         raise RuntimeError(f"kmeans launch failed: cudaError_t {err} (plan {plan})")
     LAUNCHES += 1
+    if _costs.COUNTERS:  # x, the centres and the labels each moved once
+        nbytes = x.element_size() * b * (n * d + c * d) + 4 * b * n
+        _costs.report("kmeans", 2 * b * n * c * d, nbytes)
     return out, mind
 
 

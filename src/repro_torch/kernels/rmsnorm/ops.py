@@ -41,7 +41,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _costs
 from repro_torch.kernels.rmsnorm import ref
 
 LAUNCHES = 0
@@ -327,6 +327,9 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     if err != 0:
         raise RuntimeError(f"rmsnorm launch failed: cudaError_t {err}")
     LAUNCHES += 1
+    if _costs.COUNTERS:  # x read, out written, scale read: no dot
+        nbytes = 2 * x.numel() * x.element_size() + scale.numel() * scale.element_size()
+        _costs.report("rmsnorm", 0, nbytes)
     return out
 
 
@@ -389,6 +392,9 @@ def _launch_backward(x, scale, dy, launch) -> Tuple[torch.Tensor, torch.Tensor]:
     if err != 0:
         raise RuntimeError(f"rmsnorm backward launch failed: cudaError_t {err}")
     BACKWARD_LAUNCHES += 1
+    if _costs.COUNTERS:  # x and dy read, dx written; scale read, dscale written
+        nbytes = 3 * x.numel() * x.element_size() + 2 * scale.numel() * scale.element_size()
+        _costs.report("rmsnorm_backward", 0, nbytes)
     return dx, dscale
 
 

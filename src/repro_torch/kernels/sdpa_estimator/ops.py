@@ -33,7 +33,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _costs
 from repro_torch.kernels.sdpa_estimator import ref
 
 # The kernel's geometry (csrc names in brackets). The plan below is computed
@@ -279,6 +279,12 @@ def launch(
     if err != 0:
         raise RuntimeError(f"sdpa_estimator launch failed: cudaError_t {err}")
     LAUNCHES += 1
+    if _costs.COUNTERS:  # queries and keys once (once for the batch as stride-0 views)
+        qk = sum(
+            t.shape[1] * d * (1 if st == 0 else b) for t, st in ((h_u, strides[0]), (h_o_a, strides[2]))
+        )
+        nbytes = h_u.element_size() * (qk + b * no * db) + 4 * b * nu * db
+        _costs.report("sdpa_estimator", 2 * b * nu * no * (d + db), nbytes)
     return out
 
 

@@ -14,10 +14,13 @@ path. ``make_production_mesh`` and ``make_debug_mesh`` (the zoo's 2-D and
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Iterator, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.device import DeviceLike
 
@@ -83,3 +86,62 @@ def make_batch_mesh(num_devices: int, device: DeviceLike = None) -> BatchMesh:
             "name the slots with BatchMesh to repeat a card"
         )
     return BatchMesh(tuple(torch.device("cuda", i) for i in range(n)))
+
+
+PRODUCTION_SHAPE = (16, 16)
+PRODUCTION_AXES = ("data", "model")
+MULTI_POD_SHAPE = (2, 16, 16)
+MULTI_POD_AXES = ("pod", "data", "model")
+
+
+@contextmanager
+def fake_world(size: int) -> Iterator[None]:
+    """A ``"fake"`` default process group of ``size`` ranks, this process
+    rank 0, for the ``with`` block; destroyed on exit. Refuses when a
+    process group is already initialised (a real one, or another fake)."""
+    if dist.is_initialized():
+        raise RuntimeError(
+            "a default process group is already initialised; the fake world needs this "
+            "process to itself"
+        )
+    # the one home of the fake backend: without it no 256-rank mesh fits in one process
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=int(size))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(shape: Sequence[int], axes: Sequence[str]) -> DeviceMesh:
+    size = 1
+    for n in shape:
+        size *= int(n)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"a {tuple(shape)} mesh needs a default process group of {size} ranks; "
+            f"run inside repro_torch.launch.mesh.fake_world({size}) to trace one in this process"
+        )
+    if dist.get_world_size() != size:
+        raise ValueError(
+            f"a {tuple(shape)} mesh needs {size} ranks, the group has {dist.get_world_size()}"
+        )
+    return init_device_mesh("cpu", tuple(int(n) for n in shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The pod mesh: 16 × 16 = 256 devices over ``data`` (batch / FSDP) ×
+    ``model`` (tensor / expert); ``multi_pod`` adds a leading ``pod`` axis of
+    2 (each pod one VFL party; only the one-shot protocol's exchanges cross
+    it)."""
+    if multi_pod:
+        return _mesh(MULTI_POD_SHAPE, MULTI_POD_AXES)
+    return _mesh(PRODUCTION_SHAPE, PRODUCTION_AXES)
+
+
+def make_debug_mesh(devices_per_axis: Sequence[int] = (2, 2)) -> DeviceMesh:
+    """A small mesh for CI-sized tests: two axes are ``data`` × ``model``,
+    three ``pod`` × ``data`` × ``model``."""
+    axes = PRODUCTION_AXES if len(devices_per_axis) == 2 else MULTI_POD_AXES
+    return _mesh(tuple(devices_per_axis), axes)

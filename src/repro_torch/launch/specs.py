@@ -56,6 +56,15 @@ def decode_specs(cfg: ArchConfig, shape: InputShape) -> Dict[str, Any]:
     return {"token": spec(b, 1), "pos": spec(b, 1)}
 
 
+def leaves(tree: Any):
+    """The TensorSpecs of a nested dict of them, in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
 def zeros_like_spec(tree: Any, device: DeviceLike = None) -> Any:
     """Zero tensors of the specs' shapes and dtypes, on ``device``
     (``cuda`` unless the caller says ``cpu``)."""

@@ -15,6 +15,8 @@ from torch import nn
 
 from repro_torch import optim
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.specs import TensorSpec
+from repro_torch.models import spmd
 from repro_torch.models.model_zoo import ModelDef
 
 
@@ -25,6 +27,7 @@ class Transform(NamedTuple):
     reference's ``GradientTransformation.init``)."""
 
     init: Callable[[Sequence[torch.Tensor]], object]
+    kind: str = "adam"  # or "sgdm": what opt_state_shapes gives
 
 
 def make_optimizer(cfg: ArchConfig, learning_rate: float = 3e-4, grad_clip: float = 1.0) -> Transform:
@@ -32,7 +35,7 @@ def make_optimizer(cfg: ArchConfig, learning_rate: float = 3e-4, grad_clip: floa
     ``cfg.optimizer == "sgdm"``."""
     if cfg.optimizer == "sgdm":
         return Transform(
-            lambda ps: optim.SGD(ps, learning_rate, momentum=0.9, max_norm=grad_clip)
+            lambda ps: optim.SGD(ps, learning_rate, momentum=0.9, max_norm=grad_clip), "sgdm"
         )
     return Transform(lambda ps: optim.Adam(ps, learning_rate, max_norm=grad_clip))
 
@@ -53,13 +56,15 @@ def make_train_step(model: ModelDef, tx: Transform, num_microbatches: int = 1) -
     equal microbatches; their f32 gradients are summed one microbatch at a
     time (only one microbatch's activations live), divided by the count,
     and applied once; the loss is the microbatches' mean. This is the
-    reference's ``lax.scan`` accumulator."""
+    reference's ``lax.scan`` accumulator (on DTensors the microbatches
+    interleave where that leaves the loss as it is: :func:`_microbatches`)."""
     if num_microbatches == 1:
 
         def train_step(params: nn.Module, opt_state, batch: Dict[str, torch.Tensor]):
-            loss = model.loss_fn(params, batch)
-            opt_state.step(_grads(loss, opt_state.params))
-            return loss.detach()
+            with spmd.spmd_scope(opt_state.params[0]):  # the backward and the update too
+                loss = model.loss_fn(params, batch)
+                opt_state.step(_grads(loss, opt_state.params))
+                return loss.detach()
 
         return train_step
 
@@ -69,19 +74,34 @@ def make_train_step(model: ModelDef, tx: Transform, num_microbatches: int = 1) -
             raise ValueError(
                 f"batch sizes {sorted(size)} do not split into {num_microbatches} equal microbatches"
             )
-        micro = {k: v.chunk(num_microbatches) for k, v in batch.items()}
+        blocks = model.cfg.moe is not None
+        micro = {k: _microbatches(v, num_microbatches, blocks) for k, v in batch.items()}
         ps = opt_state.params
-        acc = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
-        loss_sum = torch.zeros((), dtype=torch.float32, device=ps[0].device)
-        for i in range(num_microbatches):
-            loss = model.loss_fn(params, {k: v[i] for k, v in micro.items()})
-            torch._foreach_add_(acc, [g.float() for g in _grads(loss, ps)])
-            loss_sum += loss.detach().float()
-        torch._foreach_div_(acc, float(num_microbatches))
-        opt_state.step(acc)
-        return loss_sum / num_microbatches
+        with spmd.spmd_scope(ps[0]):
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in ps]
+            loss_sum = torch.zeros((), dtype=torch.float32, device=ps[0].device)
+            for i in range(num_microbatches):
+                loss = model.loss_fn(params, {k: v[i] for k, v in micro.items()})
+                torch._foreach_add_(acc, [g.float() for g in _grads(loss, ps)])
+                loss_sum = loss_sum + loss.detach().float()  # a DTensor's: not into a plain 0-d
+            torch._foreach_div_(acc, float(num_microbatches))
+            opt_state.step(acc)
+            return loss_sum / num_microbatches
 
     return train_step
+
+
+def _microbatches(v: torch.Tensor, n: int, blocks: bool):
+    """v's leading axis cut into n equal microbatches: contiguous blocks (the
+    reference's reshape). A DTensor's interleave (rows i, i + n, ...), each
+    keeping the batch's sharding instead of gathering it, unless ``blocks``:
+    a MoE layer drops slots past the capacity of each microbatch's tokens,
+    so which rows share a microbatch changes its loss, and its DTensors take
+    the reference's blocks (the batch gathered). Elsewhere the loss is the
+    mean of equal microbatches' means either way."""
+    if spmd.is_dtensor(v) and not blocks:
+        return v.unflatten(0, (-1, n)).unbind(1)
+    return v.chunk(n)
 
 
 def make_prefill_step(model: ModelDef) -> Callable:
@@ -93,3 +113,24 @@ def make_decode_step(model: ModelDef) -> Callable:
     """``(params, cache, {"token", "pos"}) -> (logits, cache)``:
     ``model.decode_fn``."""
     return model.decode_fn
+
+
+def _f32(tree):
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    return TensorSpec(tuple(tree.shape), torch.float32)
+
+
+def opt_state_shapes(tx: Transform, param_shapes) -> tuple:
+    """The reference's optimizer-state tree as TensorSpecs, allocating
+    nothing (its ``jax.eval_shape(tx.init, param_shapes)``): the clip's
+    ``()``, then Adam's ``{"step", "mu", "nu"}`` or, for ``sgdm``, SGD's
+    ``{"step", "momentum"}``; ``step`` a 0-d int32, the moments float32 and
+    shaped like the parameters. The dicts carry the reference's NamedTuple
+    field names. The port's :class:`~repro_torch.optim.Adam` and
+    :class:`~repro_torch.optim.SGD` hold the same tensors as lists in
+    parameter order."""
+    step = TensorSpec((), torch.int32)
+    if tx.kind == "sgdm":
+        return ((), {"step": step, "momentum": _f32(param_shapes)})
+    return ((), {"step": step, "mu": _f32(param_shapes), "nu": _f32(param_shapes)})

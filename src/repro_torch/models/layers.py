@@ -31,6 +31,25 @@ it in jnp outside any kernel. The decode kernel cannot take that shape: all
 H = 128 heads share one latent "kv head" (G = 128, past the kernel's 16), and
 the 576-wide key (latent 512 + rope 64) differs from the 512-wide value. A
 kernel for it is later work.
+
+On DTensor parameters (``launch.dryrun``, ``models/spmd.py``) every weight
+product is ``spmd.mm``: the weight gathered over the data axes and kept on
+its own ``model`` split, column parallel (the input by its batch) or row
+parallel (the input split over ``model`` on its last dim, the output a
+pending sum); a projection splits into heads in ``spmd.heads`` layout. The
+regions run on local shards through ``local_map``, each with its
+placements stated in its docstring:
+
+* :func:`_attend_sharded`: the blocked scan, batch over the batch axes,
+  heads by :func:`head_split` (the ``shard_attn_heads`` pin);
+* :func:`_decode_attend_sharded` and :func:`_write_sharded`: the cache
+  write into the cache's own shards, then the decode attention (the
+  kernel's route with dh whole; with dh split, pending score sums and P·V
+  on the local dh slice);
+* :func:`_mla_decode_sharded`: MLA's absorbed decode with the latent cache
+  gathered over ``model`` and the heads split over it;
+* :func:`_embed_sharded`: the token lookup, vocabulary split over
+  ``model`` (a pending sum).
 """
 
 from __future__ import annotations
@@ -46,6 +65,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.launch.specs import TensorSpec, spec
+from repro_torch.models import spmd
 
 NEG_INF = -1e30  # the reference's masked score
 
@@ -167,12 +187,12 @@ def ffn_apply(params: FFN, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     # jax.nn.gelu is the tanh approximation by default; F.gelu is not
     xf = _promote(x, params.w_up)
     if cfg.activation == "swiglu":
-        h = F.silu(xf @ params.w_gate) * (xf @ params.w_up)
+        h = F.silu(spmd.mm(xf, params.w_gate)) * spmd.mm(xf, params.w_up)
     elif cfg.activation == "geglu":
-        h = F.gelu(xf @ params.w_gate, approximate="tanh") * (xf @ params.w_up)
+        h = F.gelu(spmd.mm(xf, params.w_gate), approximate="tanh") * spmd.mm(xf, params.w_up)
     else:  # gelu
-        h = F.gelu(xf @ params.w_up, approximate="tanh")
-    return _promote(h, params.w_down) @ params.w_down
+        h = F.gelu(spmd.mm(xf, params.w_up), approximate="tanh")
+    return spmd.mm(_promote(h, params.w_down), params.w_down)
 
 
 # -------------------------------------------------------- blocked attention --
@@ -185,8 +205,79 @@ def _attend_block_scan(
     causal: bool,
     kv_chunk: int,
     window: Optional[int] = None,
+    shard_heads: bool = False,
 ) -> torch.Tensor:
-    """Online-softmax attention over KV chunks (the reference's scan).
+    """:func:`_attend_local` (the reference's blocked scan); on DTensors,
+    :func:`_attend_sharded`. ``shard_heads`` (``cfg.shard_attn_heads``) pins
+    the head split as the reference's ``with_sharding_constraint`` does."""
+    if spmd.is_dtensor(q) or spmd.is_dtensor(k):
+        return _attend_sharded(q, k, v, q_pos, k_pos, causal, kv_chunk, window, shard_heads)
+    return _attend_local(q, k, v, q_pos, k_pos, causal, kv_chunk, window)
+
+
+def head_split(g: int, hkv: int, model_n: int, shard_heads: bool) -> Optional[str]:
+    """Which grouped head dim of the attention core (B, Sq, Hkv, G, dh)
+    shards over ``model``: with ``shard_heads``, the reference's pin, G when
+    G >= Hkv and else Hkv (each only if it divides); without it, Hkv when it
+    divides (query heads and their kv heads then stay together), else
+    neither."""
+    if model_n <= 1:
+        return None
+    if shard_heads and g >= hkv:
+        return "g" if g % model_n == 0 else None
+    return "hkv" if hkv % model_n == 0 else None
+
+
+def _attend_sharded(q, k, v, q_pos, k_pos, causal, kv_chunk, window, shard_heads) -> torch.Tensor:
+    """The blocked scan on each device's shards (a local region): the batch
+    over the mesh's batch axes, the sequences whole, and the grouped query
+    (B, Sq, Hkv, G, dh) split on the head dim of :func:`head_split`. Split
+    on Hkv, k and v split their heads too (query head h attends with kv
+    head h // G, so a block of kv heads keeps its query heads). Split on G,
+    k and v are whole over ``model`` and the output is gathered back over
+    it before the heads merge. With ``shard_heads`` the grouped query is
+    pinned to the reference's spec, ``P("data", None, None, "model", None)``
+    (G) or ``P("data", None, "model", None, None)`` (Hkv)."""
+    mesh = next(t for t in (q, k, v) if spmd.is_dtensor(t)).device_mesh
+    b, sq, h, dh = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    g = h // hkv
+    bat = spmd.batch_entry(mesh, b)
+    split = head_split(g, hkv, spmd.model_size(mesh), shard_heads)
+    kv_heads = "model" if split == "hkv" else None
+    kv = (bat, None, kv_heads, None)
+    pos = (bat, None)
+    grouped = (bat, None, kv_heads, "model" if split == "g" else None, None)
+    q5 = spmd.pin(q, kv).reshape(b, sq, hkv, g, dh)  # a view: h splits as (Hkv, G)
+    q5 = spmd.pin(q5, grouped)
+
+    def core(q5_, k_, v_, qp, kp):
+        bl, _, hl, gl, _ = q5_.shape
+        q4 = q5_.reshape(bl, sq, hl * gl, dh)
+        out = _attend_local(q4, k_, v_, qp, kp, causal, kv_chunk, window)
+        return out.reshape(bl, sq, hl, gl, dv)
+
+    # split on G, each device's k and v gradients are its query slice's share
+    kv_grad = spmd.Pending(kv, ("model",)) if split == "g" else None
+    out = spmd.local_region(
+        core, grouped, [grouped, kv, kv, pos, pos], mesh, q5, k, v, q_pos, k_pos,
+        grad_specs=[None, kv_grad, kv_grad, None, None],
+    )
+    return spmd.pin(out, (bat, None, kv_heads, None, None)).reshape(b, sq, h, dv)
+
+
+def _attend_local(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    k_pos: torch.Tensor,
+    causal: bool,
+    kv_chunk: int,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (the reference's scan), on
+    plain tensors.
 
     q (B, Sq, H, dh); k (B, Sk, Hkv, dh); v (B, Sk, Hkv, dv), dv may differ
     from dh (MLA); *_pos (B, S*) int. Key l is masked for query i where
@@ -266,14 +357,11 @@ def _decode_attend(
     >= 0`` (and ``< window`` with a window) to each slot's own stored
     position, wherever along the slots it lies: a ring's wrapped slots need
     nothing more."""
+    if spmd.is_dtensor(cache["k"]):
+        return _decode_attend_sharded(q, k, v, positions, cache, window)
     b, _, h, dh = q.shape
-    idx = cache["index"]
-    kpos = cache["pos"]
-    slot = _write_slot(idx, cache["k"].shape[1], window)
-    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-    kpos.index_copy_(1, slot, (positions + 1).to(kpos.dtype))  # (B, 1), stored +1
-    idx.add_(1)
+    kpos = cache["pos"]  # (B, S): each slot's position, stored +1
+    _write_local(window, [cache["k"], cache["v"], kpos], cache["index"], positions, k, v)
     out = decode_ops.decode_attention(
         q.reshape(b, h, dh),
         cache["k"].transpose(1, 2),
@@ -283,6 +371,112 @@ def _decode_attend(
         window=window,
     )
     return out.reshape(b, 1, h, dh)
+
+
+def _write_local(window, buffers, index, positions, *rows, slots=None, start=None):
+    """A local region's in-place write of one decode step: ``rows`` into
+    ``buffers`` at the step's slot along dim 1, the positions (+1) into the
+    last buffer, and the index advanced. ``slots`` and ``start``: the
+    buffers are this device's part of ``slots`` slots, from slot ``start``
+    on; a slot outside it writes back what the buffer holds."""
+    slot = _write_slot(index, slots or buffers[0].shape[1], window)
+    news = [row.to(buf.dtype) for buf, row in zip(buffers[:-1], rows)]
+    news.append((positions + 1).to(buffers[-1].dtype))
+    if slots is not None:
+        slot = slot - start
+        inside = (slot >= 0) & (slot < buffers[0].shape[1])
+        slot = slot.clamp(0, buffers[0].shape[1] - 1)
+        news = [torch.where(inside, new, buf.index_select(1, slot)) for buf, new in zip(buffers, news)]
+    for buf, new in zip(buffers, news):
+        buf.index_copy_(1, slot, new)
+    index.add_(1)
+
+
+def _write_sharded(window, buffers, index, positions, rows) -> None:
+    """:func:`_write_local` on each device's shards: every buffer keeps its
+    own placements (the write lands in the cache, not in a copy), each new
+    row is placed like its buffer but whole along the slots, the positions
+    by the batch, the 0-d index replicated. Where the slots are split (the
+    reference's ``cache_spec`` takes a hybrid's stacked attention cache's
+    slot dim for its batch dim), each device writes the slot only if it
+    holds it."""
+    mesh = buffers[0].device_mesh
+    specs = [spmd.spec_of(t) for t in buffers]
+    row_specs = [(sp[0], None) + tuple(sp[2:]) for sp in specs[: len(rows)]]
+    pos_spec = (specs[-1][0], None)
+    n_buf = len(buffers)
+    slots = buffers[0].shape[1]
+    split = spmd.axes_of(specs[0][1])
+
+    def write(*args):
+        bufs = list(args[:n_buf])
+        start = spmd.coordinate(mesh, split) * bufs[0].shape[1] if split else None
+        _write_local(window, bufs, args[n_buf], args[n_buf + 1], *args[n_buf + 2 :],
+                     slots=slots if split else None, start=start)
+        return args[n_buf]  # the index: local_map wants an output
+
+    spmd.local_region(
+        write, (), specs + [(), pos_spec] + row_specs, mesh,
+        *buffers, index, positions, *rows,
+    )
+
+
+def _decode_attend_sharded(q, k, v, positions, cache, window) -> torch.Tensor:
+    """The decode step on a sharded cache, in local regions. The cache (B, S,
+    Hkv, dh) keeps its placements (``launch.sharding.cache_spec``: the batch
+    over the batch axes, the larger of Hkv and dh over ``model`` when it
+    divides). With dh whole on each device, one region writes the token and
+    runs ``decode_ops.decode_attention`` on the local shards. With dh split
+    over ``model``, the scores are summed over the split (a pending sum,
+    then one all-reduce of (B, Hkv, G, S) over ``model``), the softmax and
+    P·V run on the local dh slice of V, and the (B, H, dh) output is
+    gathered over ``model``: the cache itself never moves."""
+    ck, cv, kpos, idx = cache["k"], cache["v"], cache["pos"], cache["index"]
+    mesh = ck.device_mesh
+    b, _, h, dh = q.shape
+    hkv = ck.shape[2]
+    g = h // hkv
+    bat, _, heads, feat = spmd.spec_of(ck)
+    _write_sharded(window, [ck, cv, kpos], idx, positions, [k, v])
+    pos_spec = (bat, None)
+    if feat is None:
+        out = spmd.local_region(
+            lambda q_, k_, v_, kp, qp: decode_ops.decode_attention(
+                q_.reshape(q_.shape[0], -1, dh), k_.transpose(1, 2), v_.transpose(1, 2),
+                key_pos=kp, q_pos=qp.reshape(-1), window=window,
+            ),
+            (bat, heads, None), [(bat, None, heads, None), (bat, None, heads, None),
+                                 (bat, None, heads, None), pos_spec, pos_spec],
+            mesh, q, ck, cv, kpos, positions,
+        )
+        return out.reshape(b, 1, h, dh)
+
+    def scores_local(q_, k_):
+        bl, hl = q_.shape[0], q_.shape[2]
+        qf = q_.float().reshape(bl, k_.shape[2], hl // k_.shape[2], -1)
+        return torch.einsum("bkgd,bskd->bkgs", qf, k_.float()) / math.sqrt(dh)
+
+    q_spec = (bat, None, heads, feat)
+    scores = spmd.local_region(
+        scores_local, spmd.Pending((bat, heads, None, None), (feat,)),
+        [q_spec, (bat, None, heads, feat)], mesh, q, ck,
+    )
+    scores = spmd.pin(scores, (bat, heads, None, None))
+
+    def pv_local(sc, v_, kp, qp):
+        valid = (kp > 0) & (kp - 1 <= qp)
+        if window is not None:
+            valid &= qp - (kp - 1) < window
+        p = torch.softmax(torch.where(valid[:, None, None, :], sc, NEG_INF), dim=-1)
+        return torch.einsum("bkgs,bskd->bkgd", p, v_.float())
+
+    out = spmd.local_region(
+        pv_local, (bat, heads, None, feat),
+        [(bat, heads, None, None), (bat, None, heads, feat), pos_spec, pos_spec], mesh,
+        scores, cv, kpos, positions,
+    )
+    # the dh slices gathered (B·H·dh per device) before the heads merge into w_o's rows
+    return spmd.pin(out, (bat, heads, None, None)).reshape(b, 1, h, dh)
 
 
 def attention_apply(
@@ -312,10 +506,10 @@ def attention_apply(
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     xf = _promote(x, params.w_q)
-    q = xf @ params.w_q
+    q = spmd.mm(xf, params.w_q)
     if cfg.qkv_bias:
         q = q + params.b_q
-    q = q.reshape(b, s, h, dh)
+    q = spmd.heads(q, h).reshape(b, s, h, dh)
 
     if cross_kv is not None:
         k, v = cross_kv
@@ -326,11 +520,11 @@ def attention_apply(
         )
         cache = None
     else:
-        k, v = xf @ params.w_k, xf @ params.w_v
+        k, v = spmd.mm(xf, params.w_k), spmd.mm(xf, params.w_v)
         if cfg.qkv_bias:
             k, v = k + params.b_k, v + params.b_v
-        k = k.reshape(b, s, hkv, dh)
-        v = v.reshape(b, s, hkv, dh)
+        k = spmd.heads(k, hkv).reshape(b, s, hkv, dh)
+        v = spmd.heads(v, hkv).reshape(b, s, hkv, dh)
         if cfg.rope_style in ("rope", "mrope"):
             if rope is None:
                 rope = (
@@ -342,14 +536,14 @@ def attention_apply(
         if cache is None:
             out = _attend_block_scan(
                 q, k, v, positions, positions, causal=True, kv_chunk=min(kv_chunk, s),
-                window=window,
+                window=window, shard_heads=cfg.shard_attn_heads,
             )
         else:
             if s != 1:
                 raise ValueError(f"decode takes one token per sequence, got {s}")
             # the reference casts the decode output to x's dtype before w_o
             out = _decode_attend(q, k, v, positions, cache, window).to(x.dtype)
-    y = _promote(out.reshape(b, s, h * dh), params.w_o) @ params.w_o
+    y = spmd.mm(_promote(out.reshape(b, s, h * dh), params.w_o), params.w_o)
     return y, cache
 
 
@@ -424,46 +618,83 @@ def mla_apply(
     dn, dr, dv = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
     xf = _promote(x, params.w_dkv)
     if m.q_lora_rank:
-        q_lat = rms_norm(xf @ params.w_dq, params.q_norm_scale, cfg.norm_eps)
-        q = q_lat @ params.w_uq
+        q_lat = rms_norm(spmd.mm(xf, params.w_dq), params.q_norm_scale, cfg.norm_eps)
+        q = spmd.mm(q_lat, params.w_uq)
     else:
-        q = xf @ params.w_q
-    q = q.reshape(b, s, h, dn + dr)
+        q = spmd.mm(xf, params.w_q)
+    q = spmd.heads(q, h).reshape(b, s, h, dn + dr)
     cos, sin = rope if rope is not None else rope_angles(positions, dr, cfg.rope_theta)
     q_nope, q_rope = q[..., :dn], _rotate(q[..., dn:], cos, sin)
-    c_kv = rms_norm(xf @ params.w_dkv, params.kv_norm_scale, cfg.norm_eps)  # (B, S, r)
-    k_rope = _rotate((xf @ params.w_kr).reshape(b, s, 1, dr), cos, sin)  # shared by the heads
+    c_kv = rms_norm(spmd.mm(xf, params.w_dkv), params.kv_norm_scale, cfg.norm_eps)  # (B, S, r)
+    kr = spmd.rows(spmd.mm(xf, params.w_kr))
+    k_rope = _rotate(kr.reshape(b, s, 1, dr), cos, sin)  # shared by the heads
     scale = 1.0 / math.sqrt(dn + dr)
 
     if cache is None:
-        k_nope = (c_kv @ params.w_uk).reshape(b, s, h, dn)
-        v = (c_kv @ params.w_uv).reshape(b, s, h, dv)
+        k_nope = spmd.heads(spmd.mm(c_kv, params.w_uk), h).reshape(b, s, h, dn)
+        v = spmd.heads(spmd.mm(c_kv, params.w_uv), h).reshape(b, s, h, dv)
         k = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
         out = _attend_block_scan(
             torch.cat([q_nope, q_rope], dim=-1), k, v, positions, positions,
-            causal=True, kv_chunk=min(1024, s), window=window,
+            causal=True, kv_chunk=min(1024, s), window=window, shard_heads=cfg.shard_attn_heads,
         )
-        return _promote(out.reshape(b, s, h * dv), params.w_o) @ params.w_o, None
+        return spmd.mm(_promote(out.reshape(b, s, h * dv), params.w_o), params.w_o), None
 
     if s != 1:
         raise ValueError(f"decode takes one token per sequence, got {s}")
     cc, ckr, kpos = cache["c_kv"], cache["k_rope"], cache["pos"]
-    slot = _write_slot(cache["index"], cc.shape[1], None)
-    cc.index_copy_(1, slot, c_kv.to(cc.dtype))
-    ckr.index_copy_(1, slot, k_rope[:, :, 0, :].to(ckr.dtype))
-    kpos.index_copy_(1, slot, (positions + 1).to(kpos.dtype))  # stored +1 (0 = empty)
-    cache["index"].add_(1)
+    if spmd.is_dtensor(cc):
+        out = _mla_decode_sharded(
+            params, cfg, q_nope, q_rope, c_kv, k_rope, positions, cache, scale
+        )
+    else:  # positions stored +1 (0 = empty)
+        _write_local(None, [cc, ckr, kpos], cache["index"], positions, c_kv, k_rope[:, :, 0, :])
+        out = _mla_absorbed(
+            q_nope, q_rope, cc, ckr, kpos, positions, params.w_uk, params.w_uv, cfg, scale
+        )
+    return spmd.mm(_promote(out.to(x.dtype), params.w_o), params.w_o), cache
+
+
+def _mla_absorbed(q_nope, q_rope, cc, ckr, kpos, positions, w_uk, w_uv, cfg, scale):
+    """The absorbed attention of queries (B, S, H, ·) over a latent cache →
+    (B, S, H·dv) f32: queries into the latent space through ``w_uk``, scores
+    against the latents and rope keys, the stored-position mask, P·V, then
+    ``w_uv``. A bf16 operand meets an f32 one promoted, as jnp's einsum
+    promotes it."""
+    m = cfg.mla
+    r, dn, dv = m.kv_lora_rank, m.nope_head_dim, m.v_head_dim
+    b, s, h = q_nope.shape[:3]  # h: the heads these queries and weights hold
     ccf = cc.float()
-    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, params.w_uk.reshape(r, h, dn))
-    scores = torch.einsum("bshr,blr->bshl", q_lat, ccf)
-    scores = (scores + torch.einsum("bshd,bld->bshl", q_rope, ckr.float())) * scale
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk.reshape(r, h, dn))
+    scores = torch.einsum("bshr,blr->bshl", _promote(q_lat, ccf), ccf)
+    ckf = ckr.float()
+    scores = (scores + torch.einsum("bshd,bld->bshl", _promote(q_rope, ckf), ckf)) * scale
     dpos = positions[:, :, None, None] - (kpos[:, None, None, :] - 1)
     mask = (dpos >= 0) & (kpos[:, None, None, :] > 0)
-    p = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)  # (B, 1, H, L)
+    p = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)  # (B, S, H, L)
     o_lat = torch.einsum("bshl,blr->bshr", p, ccf)
-    out = torch.einsum("bshr,rhd->bshd", o_lat, params.w_uv.reshape(r, h, dv))
-    out = out.reshape(b, s, h * dv).to(x.dtype)
-    return _promote(out, params.w_o) @ params.w_o, cache
+    out = torch.einsum("bshr,rhd->bshd", o_lat, _promote(w_uv, o_lat).reshape(r, h, dv))
+    return out.reshape(b, s, h * dv)
+
+
+def _mla_decode_sharded(params, cfg, q_nope, q_rope, c_kv, k_rope, positions, cache, scale):
+    """MLA's absorbed decode on a sharded latent cache, in local regions: the
+    token written into the cache's own shards, then the plain absorbed form
+    per device with the batch over the batch axes, the latent cache
+    gathered whole, and the heads split over ``model`` when they divide
+    (the queries, and ``w_uk`` / ``w_uv`` on their (H·d) dim; every score
+    sums over the whole latent width). Returns (B, 1, H·dv) f32."""
+    cc, ckr, kpos = cache["c_kv"], cache["k_rope"], cache["pos"]
+    mesh = cc.device_mesh
+    _write_sharded(None, [cc, ckr, kpos], cache["index"], positions, [c_kv, k_rope[:, :, 0, :]])
+    bat = spmd.spec_of(kpos)[0]
+    heads = "model" if cfg.num_heads % spmd.model_size(mesh) == 0 else None
+    rows, q = (bat, None, None), (bat, None, heads, None)
+    return spmd.local_region(
+        lambda *a: _mla_absorbed(*a, cfg, scale), (bat, None, heads),
+        [q, q, rows, rows, (bat, None), (bat, None), (None, heads), (None, heads)],
+        mesh, q_nope, q_rope, cc, ckr, kpos, positions, params.w_uk, params.w_uv,
+    )
 
 
 def mla_cache_shapes(cfg: ArchConfig, batch: int, cache_len: int) -> Dict[str, TensorSpec]:
@@ -495,8 +726,36 @@ def act_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.activation_dtype == "bfloat16" else torch.float32
 
 
+def _embed_sharded(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The lookup on each device's shards (a local region): the tokens by
+    the batch, the table's rows split over ``model`` when the vocabulary
+    divides (each device looks up the tokens its rows hold, zeros for the
+    rest: a pending sum over ``model``, one all-reduce) and its columns
+    whole; the table's gradient a pending sum over the batch axes."""
+    mesh = table.device_mesh
+    bat = spmd.batch_entry(mesh, tokens.shape[0])
+    split = "model" if table.shape[0] % spmd.model_size(mesh) == 0 else None
+    r = mesh.get_local_rank("model") if split else 0
+
+    def lookup(tok, tab):
+        local = tok - r * tab.shape[0]
+        inside = (local >= 0) & (local < tab.shape[0])
+        return F.embedding(local.clamp(0, tab.shape[0] - 1), tab) * inside[..., None].to(tab.dtype)
+
+    rows = (bat,) + (None,) * tokens.dim()
+    out = spmd.Pending(rows, ("model",)) if split else rows
+    batch_axes = spmd.batch_axes(mesh, tokens.shape[0])
+    return spmd.local_region(
+        lookup, out, [rows[:-1], (split, None)], mesh, tokens, table,
+        grad_specs=[None, spmd.Pending((split, None), batch_axes)],
+    )
+
+
 def embed(params: Embedding, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    e = F.embedding(tokens, params.tok)
+    if spmd.is_dtensor(params.tok):
+        e = _embed_sharded(tokens, params.tok)
+    else:
+        e = F.embedding(tokens, params.tok)
     if cfg.name.startswith("gemma"):
         e = e * math.sqrt(cfg.d_model)
     return e.to(act_dtype(cfg))
@@ -506,5 +765,5 @@ def unembed(params: Embedding, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor
     """Logits in x's dtype: the tied table is cast to it, as the reference
     does (``x @ tok.T.astype(x.dtype)``: a bf16 product by default)."""
     if cfg.tie_embeddings:
-        return x @ params.tok.to(x.dtype).T
-    return x @ params.unembed.to(x.dtype)
+        return spmd.mm(x, params.tok.to(x.dtype).T)
+    return spmd.mm(x, params.unembed.to(x.dtype))

@@ -10,7 +10,9 @@ the launchers need:
 * ``prefill_fn``        — full-sequence forward → last-position logits;
 * ``decode_fn``         — one token against the decode cache;
 * ``hidden_fn``         — final-layer hidden states (the VFL extractor's);
-* ``cache_shapes``      — the decode cache's spec tree for (batch, cache_len).
+* ``cache_shapes``      — the decode cache's spec tree for (batch, cache_len);
+* ``param_shapes()``    — the reference's stacked parameter tree as
+  TensorSpecs (what the sharding rules and the dry-run read).
 
 Four stacks are built:
 
@@ -61,9 +63,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.sharding import stacked_leaf
 from repro_torch.launch.specs import TensorSpec
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import spmd
 from repro_torch.models import ssm as SSM
 
 Tree = Dict[str, Any]
@@ -363,7 +367,7 @@ def _sinusoidal_pos(positions: torch.Tensor, d: int) -> torch.Tensor:
     freqs = torch.exp(-torch.arange(half, dtype=torch.float32) * step).to(positions.device)
     ang = positions[..., None].float() * freqs
     emb = torch.cat([ang.sin(), ang.cos()], dim=-1)
-    return torch.nn.functional.pad(emb, (0, d % 2))
+    return torch.nn.functional.pad(emb, (0, 1)) if d % 2 else emb  # no zero-width pad op
 
 
 def _encode(params: EncDecLM, cfg: ArchConfig, embeds: torch.Tensor) -> torch.Tensor:
@@ -410,8 +414,8 @@ def _decode_stack(
         x = x + h.to(x.dtype)
         ck = L.rms_norm(x, block.ln2_scale, cfg.norm_eps)
         kv_in = L._promote(enc_out, block.cross_attn.w_k)
-        k = (kv_in @ block.cross_attn.w_k).reshape(b, sk, hkv, dh)
-        v = (kv_in @ block.cross_attn.w_v).reshape(b, sk, hkv, dh)
+        k = spmd.heads(spmd.mm(kv_in, block.cross_attn.w_k), hkv).reshape(b, sk, hkv, dh)
+        v = spmd.heads(spmd.mm(kv_in, block.cross_attn.w_v), hkv).reshape(b, sk, hkv, dh)
         h2, _ = L.attention_apply(block.cross_attn, ck, cfg, positions, cross_kv=(k, v))
         x = x + h2.to(x.dtype)
         y = L.ffn_apply(block.ffn, L.rms_norm(x, block.ln3_scale, cfg.norm_eps), cfg)
@@ -431,6 +435,27 @@ def _stack(tree: Tree, n: int) -> Tree:
     }
 
 
+def stacked_param_shapes(module: nn.Module) -> Tree:
+    """The reference's parameter tree of a backbone module: each parameter
+    under its names without the list indices, with one leading dim a
+    ``nn.ModuleList`` level (its length), as TensorSpecs."""
+    leaves: Dict[Tuple[str, ...], Any] = {}
+    for name, p in module.named_parameters():
+        names, index = stacked_leaf(name)
+        prev = leaves.get(names)
+        stack = tuple(i + 1 for i in index)
+        if prev is not None:
+            stack = tuple(max(a, b) for a, b in zip(prev[0], stack))
+        leaves[names] = (stack, tuple(p.shape), p.dtype)
+    tree: Tree = {}
+    for names, (stack, shape, dtype) in leaves.items():
+        node = tree
+        for n in names[:-1]:
+            node = node.setdefault(n, {})
+        node[names[-1]] = TensorSpec(stack + shape, dtype)
+    return tree
+
+
 def _ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy over every label, the log-softmax in
     f32 (a bf16 unembed's logits are cast first)."""
@@ -447,6 +472,7 @@ class ModelDef:
     decode_fn: Callable[[ModelParams, Tree, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Tree]]
     cache_shapes: Callable[[int, int], Tree]
     hidden_fn: Callable[[ModelParams, Dict[str, torch.Tensor]], torch.Tensor]
+    param_shapes: Callable[[], Tree] = None
 
 
 def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> ModelDef:
@@ -498,6 +524,7 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
             return _decode_stack(params, cfg, x, pos.expand(b, s), enc_out, window, None), None
         return forward(params, *embed_batch(params, batch), None)
 
+    @spmd.scoped
     def loss_fn(params: ModelParams, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Next-token CE over ``labels`` (B, S) plus 0.01 × the summed MoE
         aux loss. The vlm's loss covers the text positions only (after its
@@ -509,6 +536,7 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
         return loss if aux is None else loss + 0.01 * aux
 
     @torch.no_grad()
+    @spmd.scoped
     def prefill_fn(params: ModelParams, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """tokens (B, S), and ``embeds`` (B, prefix, d) for the vlm (patches
         before the text) and audio (the encoder's frames) families →
@@ -517,6 +545,7 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
         return L.unembed(params.embed, h[:, -1:, :], cfg)[:, 0, :]
 
     @torch.no_grad()
+    @spmd.scoped
     def decode_fn(params: ModelParams, caches: Tree, batch: Dict[str, torch.Tensor]):
         """token (B, 1); pos (B, 1) int32, which the attention-free ``ssm``
         family does not read (its cache has no positions). The audio family
@@ -524,13 +553,14 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
         dtype and left as it is."""
         token, pos = batch["token"], batch["pos"]
         x = L.embed(params.embed, token, cfg)
-        if cfg.family == "audio":
-            x = x + _sinusoidal_pos(pos[:, 0], cfg.d_model)[:, None].to(x.dtype)
-            enc_out = caches["enc_out"].to(L.act_dtype(cfg))
-            h = _decode_stack(params, cfg, x, pos, enc_out, window, caches)
-        else:
-            positions3 = pos[None].expand(3, *pos.shape) if cfg.rope_style == "mrope" else None
-            h, _ = forward(params, x, pos, positions3, caches)
+        with spmd.stack_views(caches):
+            if cfg.family == "audio":
+                x = x + _sinusoidal_pos(pos[:, 0], cfg.d_model)[:, None].to(x.dtype)
+                enc_out = caches["enc_out"].to(L.act_dtype(cfg))
+                h = _decode_stack(params, cfg, x, pos, enc_out, window, caches)
+            else:
+                positions3 = pos[None].expand(3, *pos.shape) if cfg.rope_style == "mrope" else None
+                h, _ = forward(params, x, pos, positions3, caches)
         return L.unembed(params.embed, h, cfg)[:, 0, :], caches
 
     def cache_shapes(batch: int, cache_len: int) -> Tree:
@@ -559,11 +589,18 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
             out["enc_out"] = TensorSpec((batch, cfg.prefix_tokens, cfg.d_model), torch.bfloat16)
         return out
 
+    @spmd.scoped
     def hidden_fn(params: ModelParams, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Final-layer hidden states (B, S, d): the backbone as a VFL
         representation extractor (with ``embeds`` for vlm and audio, as in
         :func:`prefill_fn`)."""
         return forward_hidden(params, batch)[0]
+
+    def param_shapes() -> Tree:
+        """The reference's stacked parameter tree: same nested names, leading
+        layer-stack dims, shapes and dtypes, read off a ``meta`` backbone
+        (nothing allocated)."""
+        return stacked_param_shapes(make_backbone(cfg, "meta"))
 
     return ModelDef(
         cfg=cfg,
@@ -573,4 +610,5 @@ def build_model(cfg: ArchConfig, window_override: Optional[int] = None) -> Model
         decode_fn=decode_fn,
         cache_shapes=cache_shapes,
         hidden_fn=hidden_fn,
+        param_shapes=param_shapes,
     )

@@ -6,8 +6,8 @@ Counterpart of ``repro.roofline.analysis``. :func:`active_params` and
 holds the H100's published rates, which ``chip_smoke.py``'s bounds read
 (NVIDIA's data sheet, SXM part, dense, at the full 700 W power limit), not
 the reference's TPU figures; :func:`roofline_terms` turns per-device flops
-and bytes into seconds on it. The reference's ``hlo_analysis`` reads XLA's
-HLO and has no counterpart in the port.
+and bytes into seconds on it. The per-device counts come from
+``trace_analysis``, the counterpart of the reference's ``hlo_analysis``.
 """
 
 from __future__ import annotations

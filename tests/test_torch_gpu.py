@@ -1516,3 +1516,32 @@ def test_party_processes_on_one_card_equal_the_cpu_ranks(cuda):
             for k, v in b["extractor"].items():
                 assert np.abs(a["extractor"][k] - v).max() <= 1e-4 * scale
             assert abs(a["loss"] - b["loss"]) <= 1e-4 * scale
+
+
+def test_chip_smoke_phase_dryrun(cuda):
+    """``[dryrun]``: the CLI's subprocesses on the fake mesh, their records'
+    counts, and no memory taken on the card."""
+    chip_smoke._zero_counters()
+    dry = chip_smoke.phase_dryrun("test")
+    assert set(dry["records"]) == {
+        "mamba2-370m__long_500k__16x16", "mamba2-370m__long_500k__2x16x16",
+        "phi4-mini-3.8b__decode_32k__16x16",
+    }
+    for rec in dry["records"].values():
+        assert rec["route"] == "plain" and rec["hlo_analysis"]["kernel_calls"] == {}
+    assert (rops.LAUNCHES, dops.LAUNCHES) == (0, 0)
+
+
+def test_chip_smoke_phase_roofline(cuda):
+    """``[roofline]`` on a reduced phi4 (4 layers, f32 weights on the card):
+    the counter's kernel calls equal the launches, and the 2-layer variant's
+    dot FLOPs equal the CPU plain route's."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b").reduced(), num_layers=4)
+    params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    chip_smoke._zero_counters()
+    chip_smoke.phase_roofline(cfg, params, "test")
+    steps = chip_smoke.ROOFLINE_STEPS + 4
+    assert rops.LAUNCHES == steps * (2 * 4 + 1) + 5
+    assert dops.LAUNCHES == steps * 4 + 2
